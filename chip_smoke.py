@@ -21,7 +21,23 @@ any failure raises:
    through ``Predictor.predict``, a list of mixed-size images and a
    letterboxed request, with the NMS launches of that run counted; on one
    batch the kernel path and the plain ``batched_nms`` agree exactly;
-6. the kernels line, then the card's ``nvidia-smi`` line, then the result.
+6. match: the anchor-matching kernel against its plain PyTorch version on
+   the card, at the flagship training shape (N=64, A=76 725, M=100, crowded
+   640 px scenes of 80 classes) and at the edge cases (images without gts,
+   duplicate gts, gts that overlap no anchor, M=1, M=13, no force-match):
+   all three outputs and the matches equal, with its time, the plain
+   version's and the card's bound;
+7. train_sanity: ten f32 steps of the sanity task from JAX's seed-0 state
+   (``ssd_tpu_torch/assets/train_ref_v1.npz``) against JAX's per-step
+   metrics: num_positives equal at every step, step 0's loss within 1e-4
+   and grad_norm within 2e-3, every loss within 1e-2 (all relative);
+8. train_flagship: ``train()`` on the flagship config at full width and
+   depth (bf16, 640 px, 80 classes, batch 64, its own optimizer recipe,
+   seeded weights) over crowded 640 px batches: 3 warm-up and 10 timed
+   steps, with the matching launches of that run counted, the losses
+   finite, one batch's kernel matches equal to the plain ones, and the
+   exported ``.npz`` served by ``Predictor.from_npz``;
+9. the kernels line, then the card's ``nvidia-smi`` line, then the result.
 
 Times are CUDA-event times after warm-up, or host times around work that
 ends in a synchronise; they are from an unoptimised eager bring-up.
@@ -32,24 +48,35 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from ssd_tpu_torch import _build
-from ssd_tpu_torch.config import Config, NMSConfig
+from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
 from ssd_tpu_torch.convert import load_npz_artifact
-from ssd_tpu_torch.ops import box_utils, nms, nms_cuda
+from ssd_tpu_torch.data import synthetic
+from ssd_tpu_torch.models.detector import Detector
+from ssd_tpu_torch.ops import (box_utils, losses, matching, matching_cuda, nms,
+                               nms_cuda)
+from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.ingest import pack_s2d
 from ssd_tpu_torch.ops.postprocess import select_candidates_cells
+from ssd_tpu_torch.ops.targets import create_targets
 from ssd_tpu_torch.predictor import Predictor
+from ssd_tpu_torch.train import EXPORT_NAME, train
+from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
+                                      make_train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "coco_mobilenet_640_flagship.json")
 ASSET = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_v1.npz")
+TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
@@ -57,6 +84,11 @@ DEVICE = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 IOU_FLOPS = 12  # 4 min/max, 3 sub, 2 clamp, 1 mul, 1 add, 1 div
+# matching: the IoU, the union's floor, and the compare into each maximum
+MATCH_FLOPS = 13
+# the flagship training shape: data.max_gt_boxes and crowded scenes
+MATCH_M = 100
+CROWDED_SEED = 0
 # Class-head bias of the seeded flagship: sigmoid(-2.5) = 0.076, above the
 # 0.05 score threshold, so candidates of every class are live and NMS works.
 FLAGSHIP_CLASS_BIAS = -2.5
@@ -363,6 +395,291 @@ def phase_flagship(power_line: str) -> int:
           "note": "unoptimised eager bring-up reading on " + power_line})
     return launches
 
+# ------------------------------------------------------------------ matching
+
+def _plain_core(anchors, gt, num, chunk: int = 16):
+    """The plain version, a slice of images at a time: at N=64 one (N, A,
+    M) f32 temporary is 2 GB."""
+    parts = [matching.match_core(anchors, gt[i:i + chunk], num[i:i + chunk])
+             for i in range(0, gt.shape[0], chunk)]
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+
+
+def check_match_case(name: str, anchors, gt, num,
+                     cfg: MatcherConfig = MatcherConfig(),
+                     timed: bool = False) -> dict:
+    """Kernel vs plain on the card: best_gt, best_iou, best_anchor and the
+    matches equal."""
+    anchors = torch.as_tensor(anchors).to(DEVICE)
+    gt = torch.as_tensor(gt).to(DEVICE)
+    num = torch.as_tensor(num).to(DEVICE, torch.int32)
+    got = matching_cuda.match_core_cuda(anchors, gt, num)
+    want = _plain_core(anchors, gt, num)
+    torch.cuda.synchronize()
+    for what, g, w in zip(("best_gt", "best_iou", "best_anchor"), got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"match {name}: {bad} {what} differ")
+    err = float((got[1] - want[1]).abs().max())
+    m_kernel = matching_cuda.match_anchors(anchors, gt, num, cfg)
+    m_plain = matching.finish_matches(*want, num, cfg)
+    if not torch.equal(m_kernel, m_plain):
+        raise AssertionError(f"match {name}: matches differ")
+    n, m = gt.shape[:2]
+    a = anchors.shape[0]
+    nb = num.clamp(0, m)
+    row = {"phase": "match", "case": name, "N": n, "A": a, "M": m,
+           "gts": int(nb.sum()), "images_without_gts": int((nb == 0).sum()),
+           "force_match": cfg.force_match_for_each_gt,
+           "positives": int((m_kernel >= 0).sum()),
+           "ignored": int((m_kernel == -2).sum()),
+           "max_abs_err": err, "equal": True}
+    if timed:
+        nbytes = (a * 16 + n * m * 16 + n * 4  # anchors, gts, num_boxes
+                  + n * a * 8 + n * m * 4)  # best_gt + best_iou, best_anchor
+        ious = int(nb.sum()) * a
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ious * MATCH_FLOPS / F32_FLOP_PER_S * 1e3
+        row.update({
+            "ms": cuda_ms(lambda: matching_cuda.match_core_cuda(
+                anchors, gt, num), iters=50),
+            "plain_ms": cuda_ms(lambda: matching.match_core(anchors, gt, num),
+                                iters=3, warmup=1),
+            "bytes": nbytes, "ious": ious,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes both argmaxes "
+                            "from one IoU pass"})
+    emit(row)
+    return row
+
+
+def _random_boxes(rng, shape, lo=0.1, hi=0.9):
+    c = rng.uniform(lo, hi, shape + (2,))
+    size = rng.uniform(0.02, 0.3, shape + (2,))
+    return np.concatenate([c - size / 2, c + size / 2], -1).astype(
+        np.float32).clip(0, 1)
+
+
+def phase_match() -> dict:
+    cfg = Config.load(FLAGSHIP)
+    anchors = generate_anchors(cfg.image_size, cfg.anchors)
+    b = synthetic.crowded_batch(0, CROWDED_SEED, cfg.train.batch_size,
+                                cfg.image_hw()[0], cfg.num_classes, MATCH_M)
+    main = check_match_case("flagship_b64", anchors, b["boxes"],
+                            b["num_boxes"], cfg.matcher, timed=True)
+    rng = np.random.default_rng(2)
+    gt = _random_boxes(rng, (8, 100))
+    num = rng.integers(0, 101, 8).astype(np.int32)
+    num[:3] = 0
+    check_match_case("no_gts", anchors, gt, num)
+    dup = b["boxes"][:8].copy()
+    dup[:, 1::2] = dup[:, 0:-1:2]  # every odd gt repeats the even one before
+    check_match_case("duplicates", anchors, dup, b["num_boxes"][:8])
+    far = gt.copy()
+    far[:, :10] = [0.5, 0.5, 0.5, 0.6]  # zero height: IoU 0 with every anchor
+    check_match_case("no_overlap", anchors, far, np.full(8, 100, np.int32))
+    check_match_case("m1", anchors, gt[:, :1], np.ones(8, np.int32))
+    check_match_case("m13", anchors, gt[:, :13], np.minimum(num, 13))
+    check_match_case("no_force_match", anchors, b["boxes"][:8],
+                     b["num_boxes"][:8],
+                     dataclasses.replace(cfg.matcher,
+                                         force_match_for_each_gt=False))
+    return main
+
+
+# ------------------------------------------------------------------ training
+
+def phase_train_sanity() -> dict:
+    """Ten f32 steps from JAX's seed-0 state against JAX's metrics."""
+    cfg, init = load_npz_artifact(TRAIN_REF)
+    with np.load(TRAIN_REF) as z:
+        ref = {k: [float(v) for v in z[f"jax_{k}"]]
+               for k in ("loss", "num_positives", "grad_norm")}
+        final = {k[len("final/"):]: z[k] for k in z.files
+                 if k.startswith("final/")}
+    det = Detector(cfg, init, device=DEVICE)
+    opt = Optimizer(cfg)
+    state = create_train_state(det, opt)
+    step = make_train_step(det, opt)
+    batches = [synthetic.sanity_train_batch(i, cfg.train.batch_size,
+                                            cfg.data.max_gt_boxes)
+               for i in range(len(ref["loss"]))]
+    matching_cuda.launches = 0
+    got = {k: [] for k in ref}
+    for batch in batches:
+        state, m = step(state, batch)
+        for k in got:
+            got[k].append(float(m[k]))
+    launches = matching_cuda.launches
+    loss_dev = [abs(g / w - 1) for g, w in zip(got["loss"], ref["loss"])]
+    gn_dev = [abs(g / w - 1) for g, w in zip(got["grad_norm"],
+                                             ref["grad_norm"])]
+    weights = det.model.state_dict()
+    param_dev = max(float(np.abs(weights[k].cpu().numpy() - v).max())
+                    for k, v in final.items())
+    emit({"phase": "train_sanity", "steps": len(batches),
+          "match_launches": launches,
+          "num_positives": got["num_positives"],
+          "num_positives_equal": got["num_positives"] == ref["num_positives"],
+          "loss": got["loss"], "jax_loss": ref["loss"],
+          "loss_rel_dev": loss_dev, "max_loss_rel_dev": max(loss_dev),
+          "grad_norm_rel_dev": gn_dev,
+          "final_weights_max_abs_dev": param_dev})
+    if launches != len(batches):
+        raise AssertionError(f"{launches} matching launches for "
+                             f"{len(batches)} steps")
+    if got["num_positives"] != ref["num_positives"]:
+        raise AssertionError("num_positives differ from JAX's")
+    if loss_dev[0] > 1e-4 or gn_dev[0] > 2e-3 or max(loss_dev) > 1e-2:
+        raise AssertionError(f"training deviates from JAX's: loss "
+                             f"{loss_dev}, grad_norm {gn_dev}")
+    return {"max_loss_rel_dev": max(loss_dev)}
+
+
+def train_step_breakdown(det: Detector, cfg: Config, batch: dict,
+                         iters: int = 3) -> dict:
+    """CUDA-event milliseconds of one training step's stages on ``batch``,
+    the mean of ``iters`` steps after one warm-up: the model's train-mode
+    forward, target creation (matching kernel included), the per-level loss
+    and L2, the backward pass and the optimizer update."""
+    opt = Optimizer(cfg)
+    state = create_train_state(det, opt)
+    images, boxes, labels, num = (det.as_input(batch[k]) for k in (
+        "images", "boxes", "labels", "num_boxes"))
+    names = ("forward", "targets", "loss", "backward", "update")
+    sums = dict.fromkeys(names, 0.0)
+    det.model.train()
+    for it in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        raw = det.model(images)
+        ev[1].record()
+        t = create_targets(det.anchors, boxes, labels, num, cfg.num_classes,
+                           cfg.matcher, class_onehot=False)
+        ev[2].record()
+        ld = losses.detection_loss_levels(raw, t, cfg.num_classes,
+                                          cfg.losses, anchors=det.anchors)
+        total = ld.total + losses.l2_regularization(
+            det.model.parameters(), cfg.losses.weight_decay)
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        opt.update({k: p.grad for k, p in state.params.items()},
+                   state.opt_state, state.params)
+        ev[5].record()
+        for p in state.params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        if it:
+            for i, name in enumerate(names):
+                sums[name] += ev[i].elapsed_time(ev[i + 1]) / iters
+    return sums
+
+
+class TimedBatches(synthetic.SceneBatches):
+    """Records when each batch was asked for and when it was ready."""
+
+    def __init__(self, make_batch):
+        super().__init__(make_batch)
+        self.marks = []
+
+    def __next__(self) -> dict:
+        t0 = time.perf_counter()
+        batch = super().__next__()
+        self.marks.append((t0, time.perf_counter()))
+        return batch
+
+
+def phase_train_flagship(power_line: str, warmup: int = 3,
+                         timed: int = 10) -> int:
+    """``warmup + timed + 1`` steps through ``train()``: a step is timed
+    from its batch being ready to the next batch being asked for (its
+    metrics read back in between), so the last step, followed by the
+    loop's checkpoint and export, is run but not timed."""
+    cfg = Config.load(FLAGSHIP)
+    assert cfg.model.compute_dtype == "bfloat16"
+    # log every step: each step then ends in a readback of its metrics
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_every=1))
+    accum = max(cfg.train.grad_accum_steps, 1)
+    h, w = cfg.image_hw()
+    batches = TimedBatches(lambda i: synthetic.crowded_batch(
+        i, CROWDED_SEED, cfg.train.batch_size, h, cfg.num_classes,
+        cfg.data.max_gt_boxes))
+    workdir = tempfile.mkdtemp(prefix="ssd_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        matching_cuda.launches = 0
+        t0 = time.perf_counter()
+        steps = warmup + timed + 1
+        last = train(cfg, workdir, batches, max_steps=steps, device=DEVICE)
+        wall = time.perf_counter() - t0
+        launches = matching_cuda.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        marks = batches.marks
+        step_ms = [(marks[i + 1][0] - marks[i][1]) * 1e3
+                   for i in range(len(marks) - 1)]
+        data_ms = [(b - a) * 1e3 for a, b in marks]
+        losses = [r["loss"] for r in records]
+        if len(records) != steps:
+            raise AssertionError(f"{len(records)} logged steps")
+        if not all(np.isfinite(v) for r in records for k, v in r.items()
+                   if isinstance(v, float)):
+            raise AssertionError("a training metric is not finite")
+        if launches != steps * accum:
+            raise AssertionError(f"{launches} matching launches, want "
+                                 f"{steps * accum}")
+
+        # one step's batch: the kernel's matches equal the plain version's
+        det = Detector(cfg, device=DEVICE)
+        b = synthetic.crowded_batch(0, CROWDED_SEED, cfg.train.batch_size, h,
+                                    cfg.num_classes, cfg.data.max_gt_boxes)
+        gt = torch.from_numpy(b["boxes"]).to(DEVICE)
+        num = torch.from_numpy(b["num_boxes"]).to(DEVICE)
+        m_kernel = matching_cuda.match_anchors(det.anchors, gt, num,
+                                               cfg.matcher)
+        m_plain = matching.finish_matches(
+            *_plain_core(det.anchors, gt, num), num, cfg.matcher)
+        if not torch.equal(m_kernel, m_plain):
+            raise AssertionError("flagship batch: kernel matches differ")
+        breakdown = train_step_breakdown(det, cfg, b)
+        del det
+
+        # the export serves
+        pred = Predictor.from_npz(os.path.join(workdir, EXPORT_NAME),
+                                  device=DEVICE)
+        served = b["images"][:8]
+        out = pred.predict(served)
+        _check_output(out, len(served), cfg.nms.max_boxes)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    timed_ms = step_ms[warmup:warmup + timed]
+    p50 = float(np.median(timed_ms))
+    emit({"phase": "train_flagship", "config": os.path.relpath(FLAGSHIP, ROOT),
+          "dtype": "bfloat16", "batch": cfg.train.batch_size, "image": [h, w],
+          "anchors": cfg.num_anchors(), "grad_accum_steps": accum,
+          "optimizer": cfg.train.optimizer, "box_loss": cfg.losses.box_loss,
+          "ema_decay": cfg.train.ema_decay, "weights": "seeded (train.seed)",
+          "steps": steps, "warmup_steps": warmup, "timed_steps": timed,
+          "match_launches": launches, "kernel_vs_plain_equal": True,
+          "losses": losses, "final_metrics": last,
+          "step_ms": step_ms, "p50_step_ms": p50,
+          "img_per_s": cfg.train.batch_size / p50 * 1e3,
+          "host_data_ms": data_ms,
+          "p50_host_data_ms": float(np.median(data_ms[warmup:
+                                                      warmup + timed])),
+          "wall_s": wall, "peak_mem_gib": peak_gib,
+          "device_ms": breakdown,
+          "export_served": True,
+          "note": "unoptimised eager bring-up reading on " + power_line})
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -383,14 +700,25 @@ def main() -> int:
 
     main_nms = phase_nms()
     phase_sanity()
-    launches = phase_flagship(power_line)
+    nms_launches = phase_flagship(power_line)
+    main_match = phase_match()
+    phase_train_sanity()
+    match_launches = phase_train_flagship(power_line)
 
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",
-        "replaces": "ssd_tpu/ops/nms_pallas.py:78", "launches": launches,
+        "replaces": "ssd_tpu/ops/nms_pallas.py:78", "launches": nms_launches,
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
-        "bound_by": main_nms["bound_by"], "library_ms": None}]})
+        "bound_by": main_nms["bound_by"], "library_ms": None}, {
+        "name": "match", "route": "cuda",
+        "source": "ssd_tpu_torch/csrc/match.cu",
+        "replaces": "ssd_tpu/ops/matching_pallas.py:60",
+        "launches": match_launches,
+        "max_abs_err": main_match["max_abs_err"], "ms": main_match["ms"],
+        "plain_ms": main_match["plain_ms"],
+        "bound_ms": main_match["bound_ms"],
+        "bound_by": main_match["bound_by"], "library_ms": None}]})
     print(power_line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

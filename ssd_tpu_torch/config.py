@@ -14,8 +14,15 @@ Fields that select a TPU lowering have no effect in the port:
 * ``NMSConfig.approx_class_topk`` and ``NMSConfig.approx_cell_topk``: the
   JAX package lowers these to an exact top-k off the TPU, and the port's
   top-k is always exact, with the lower index first among equal values.
-* ``MatcherConfig.use_pallas``, ``ModelConfig.remat_early`` and the training
-  fields: training is not ported yet.
+* ``MatcherConfig.use_pallas``: matching follows the tensors' device too
+  (``ops/matching_cuda.py``: the hand-written kernel on CUDA tensors, its
+  plain version on CPU tensors).
+* ``ModelConfig.remat_early``: eager PyTorch keeps every activation.
+
+Training fields the port's loop does not act on yet (``ROADMAP.md``):
+``TrainConfig.eval_every``, ``init_from``, ``distill_*``,
+``param_sharding``, ``multiscale``/``multiscale_every`` (the input
+pipeline's job), and every ``DataConfig`` field but ``max_gt_boxes``.
 """
 
 from __future__ import annotations

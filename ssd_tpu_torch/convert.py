@@ -11,6 +11,11 @@ module paths one to one (``params/backbone/ds3/depthwise/conv/kernel`` ->
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * conv ``bias`` -> ``bias``.
 
+A JAX ``TrainState`` maps by its ``params`` and ``batch_stats``
+(``convert_variables({"params": s.params, "batch_stats": s.batch_stats},
+cfg)``), and a gradient tree, shaped like ``params``, by
+``convert_params`` under the same HWIO -> OIHW rule.
+
 The input is plain nested dicts of numpy arrays (``jax.device_get`` of a
 restored tree), so this module needs no JAX. Any leaf left unused, and any
 port parameter left unfilled, raises.
@@ -49,19 +54,34 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
+def _module(target):
+    if isinstance(target, Config):
+        with torch.device("meta"):
+            return SSDModel(target)
+    return target
+
+
 def expected_state(target) -> dict[str, tuple]:
     """Name -> shape of every tensor ``target`` loads: a module, or a Config
     (the full model for that config, built without memory)."""
-    if isinstance(target, Config):
-        with torch.device("meta"):
-            target = SSDModel(target)
-    return {k: tuple(v.shape) for k, v in target.state_dict().items()}
+    return {k: tuple(v.shape) for k, v in _module(target).state_dict().items()}
 
 
 def convert_variables(variables: dict, target) -> dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) -> state dict (f32) for ``target``,
     a Config (the full model) or any module of the port."""
-    want = expected_state(target)
+    return _convert(variables, expected_state(target))
+
+
+def convert_params(params: dict, target) -> dict[str, torch.Tensor]:
+    """A flax ``params`` tree, or a gradient tree of the same shape ->
+    ``{parameter name: f32 tensor}`` for ``target``'s parameters."""
+    want = {k: tuple(v.shape)
+            for k, v in _module(target).named_parameters()}
+    return _convert({"params": params}, want)
+
+
+def _convert(variables: dict, want: dict[str, tuple]) -> dict[str, torch.Tensor]:
     state, unused = {}, []
     for path, value in _flatten(variables).items():
         leaf = _LEAF_NAMES.get((path[0], path[-1]))

@@ -1,10 +1,15 @@
-"""Detector: backbone -> FPN -> heads, and prediction.
+"""Detector: backbone -> FPN -> heads, the training loss, and prediction.
 
 ``SSDModel`` maps raw images (NHWC uint8, or the packed ``(N, H/4, W/4,
 48)`` s8 feed) to the per-level raw head maps. ``Detector`` holds the model
-and the anchors on a device and runs ``predict``: the model, cell-major
-candidate selection and class-wise hard NMS, returning the public contract
-``Detections(boxes, scores, labels, num_boxes)``.
+and the anchors on a device and runs
+
+* ``loss``: the model in train mode (batch-statistics BN, running stats
+  updated), target creation with the matching kernel, the per-level (or
+  flat) focal + box loss and L2 -> ``(total, metrics)``;
+* ``predict``: the model in eval mode, cell-major candidate selection and
+  class-wise hard NMS, returning the public contract ``Detections(boxes,
+  scores, labels, num_boxes)``.
 """
 
 from __future__ import annotations
@@ -17,12 +22,14 @@ from torch import nn
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.device import resolve_device
-from ssd_tpu_torch.models.fpn import FPN, RetinaHead
+from ssd_tpu_torch.models.fpn import FPN, RetinaHead, flatten_levels
 from ssd_tpu_torch.models.layers import BatchNorm, Conv, compute_dtype
 from ssd_tpu_torch.models.mobilenet import FoldedS2DConv, MobileNetV1
+from ssd_tpu_torch.ops import losses
 from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.nms import Detections
 from ssd_tpu_torch.ops.postprocess import postprocess_cells
+from ssd_tpu_torch.ops.targets import create_targets
 
 
 def check_supported(cfg: Config) -> None:
@@ -60,7 +67,8 @@ class SSDModel(nn.Module):
         self.cfg = cfg
         m = cfg.model
         self.backbone = MobileNetV1(m.width_multiplier, m.stem_schedule,
-                                    stem_fold_normalize=True)
+                                    stem_fold_normalize=True,
+                                    bn_momentum=m.bn_momentum)
         self.fpn = FPN(self.backbone.out_channels, m.fpn_channels)
         self.head = RetinaHead(
             m.fpn_channels, cfg.num_classes, cfg.anchors.num_anchors_per_cell,
@@ -77,13 +85,15 @@ class SSDModel(nn.Module):
     def reset_parameters(self, seed: int) -> None:
         """Seeded init in the JAX package's scheme: conv kernels normal with
         std ``1/sqrt(fan_in)`` (prediction convs 0.01), zero biases, the
-        class prior on the class-head bias, identity batch norm."""
+        class prior on the class-head bias, identity batch norm. The draws
+        come from a CPU generator, so a seed gives the same weights on any
+        device."""
         gen = torch.Generator(device="cpu").manual_seed(seed)
         with torch.no_grad():
             for name, mod in self.named_modules():
                 if isinstance(mod, FoldedS2DConv):
-                    mod.weight.normal_(0.0, 1.0 / math.sqrt(48 * 9),
-                                       generator=gen)
+                    mod.weight.copy_(torch.empty(mod.weight.shape).normal_(
+                        0.0, 1.0 / math.sqrt(48 * 9), generator=gen))
                 elif isinstance(mod, Conv):
                     if name.endswith(".predict"):
                         bias = (self.head.class_net.final_bias_init
@@ -99,23 +109,31 @@ class SSDModel(nn.Module):
 
 
 class Detector:
-    """Model, anchors and ``predict`` on one device (``None`` -> CUDA).
+    """Model, anchors, ``loss`` and ``predict`` on one device (``None`` ->
+    CUDA).
 
     ``state``: a state dict (``convert.convert_variables``) loaded strictly;
-    without one the weights are seeded from 0.
+    without one the weights are seeded from 0. ``model``: an existing
+    ``SSDModel`` on ``device`` to share instead (a second resolution of the
+    same weights: only the anchors differ).
     """
 
-    def __init__(self, cfg: Config, state: dict | None = None, device=None):
+    def __init__(self, cfg: Config, state: dict | None = None, device=None,
+                 model: SSDModel | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = SSDModel(cfg)
-        if state is None:
-            model.reset_parameters(seed=0)
-        else:
-            model.load_state_dict(state, strict=True)
-        self.model = model.to(self.device).eval()
-        if self.device.type == "cuda":
-            self.model.to(memory_format=torch.channels_last)
+        if model is None:
+            model = SSDModel(cfg)
+            if state is None:
+                model.reset_parameters(seed=0)
+            else:
+                model.load_state_dict(state, strict=True)
+            model = model.to(self.device).eval()
+            if self.device.type == "cuda":
+                model.to(memory_format=torch.channels_last)
+        elif state is not None:
+            raise ValueError("pass a state or a model, not both")
+        self.model = model
         anchors = generate_anchors(cfg.image_size, cfg.anchors)
         assert anchors.shape[0] == cfg.num_anchors()
         self.anchors = torch.from_numpy(anchors).to(self.device)
@@ -126,10 +144,44 @@ class Detector:
             images = torch.from_numpy(np.ascontiguousarray(images))
         return images.to(self.device, non_blocking=True)
 
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss of one batch, with gradients.
+
+        ``batch``: ``images`` uint8 ``(N, H, W, 3)``, ``boxes (N, M, 4)``,
+        ``labels (N, M)`` int, ``num_boxes (N,)`` int (numpy or tensors).
+        Runs the model in train mode, which updates the BN running
+        statistics in place. Returns ``(total, metrics)``; the metrics are
+        detached scalars on the device.
+        """
+        cfg = self.cfg
+        # OHEM ranks per-anchor losses, which only the flat loss forms
+        per_level = cfg.losses.per_level and not cfg.losses.use_ohem
+        self.model.train()
+        raw = self.model(self.as_input(batch["images"]))
+        targets = create_targets(
+            self.anchors, self.as_input(batch["boxes"]),
+            self.as_input(batch["labels"]), self.as_input(batch["num_boxes"]),
+            cfg.num_classes, cfg.matcher, class_onehot=not per_level)
+        if per_level:
+            ld = losses.detection_loss_levels(raw, targets, cfg.num_classes,
+                                              cfg.losses, anchors=self.anchors)
+        else:
+            logits, deltas = flatten_levels(raw, cfg.num_classes)
+            ld = losses.detection_loss(logits, deltas, targets, cfg.losses,
+                                       anchors=self.anchors)
+        reg = losses.l2_regularization(self.model.parameters(),
+                                       cfg.losses.weight_decay)
+        total = ld.total + reg
+        metrics = {"loss": total, "classification_loss": ld.classification,
+                   "localization_loss": ld.localization,
+                   "regularization_loss": reg,
+                   "num_positives": ld.num_positives}
+        return total, {k: v.detach() for k, v in metrics.items()}
+
     @torch.inference_mode()
     def raw(self, images) -> list:
         """Per-level raw head maps for uint8 (or packed s8) images."""
-        return self.model(self.as_input(images))
+        return self.model.eval()(self.as_input(images))
 
     @torch.inference_mode()
     def predict(self, images) -> Detections:

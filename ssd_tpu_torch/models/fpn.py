@@ -4,7 +4,10 @@ P3-P5 from 1x1 laterals, top-down nearest upsample-add and 3x3 smoothing;
 P6 by a stride-2 conv on C5, P7 by a stride-2 conv on ReLU(P6). The class
 and box subnets are shared across levels. The head returns the per-level
 raw maps in the JAX package's layout, ``[(cls (N, H, W, K*C), box (N, H, W,
-K*4)), ...]``, channel ``k*C + c``.
+K*4)), ...]``, channel ``k*C + c``; ``flatten_levels`` concatenates them
+into the flat ``(N, A, C)``/``(N, A, 4)`` outputs. The JAX package's
+inference-only fusion barriers have no counterpart in eager PyTorch, so
+train and eval run the same code here.
 """
 
 from __future__ import annotations
@@ -92,3 +95,13 @@ class RetinaHead(nn.Module):
     def forward(self, pyramid: list) -> list:
         return [(self.class_net(p).permute(0, 2, 3, 1),
                  self.box_net(p).permute(0, 2, 3, 1)) for p in pyramid]
+
+
+def flatten_levels(raw: list, num_classes: int):
+    """Per-level raw maps -> ``(logits (N, A, C), deltas (N, A, 4))``,
+    anchors in (level, row, col, anchor) order (the JAX head's
+    ``flatten=True`` outputs)."""
+    n = raw[0][0].shape[0]
+    logits = torch.cat([c.reshape(n, -1, num_classes) for c, _ in raw], 1)
+    deltas = torch.cat([b.reshape(n, -1, 4) for _, b in raw], 1)
+    return logits, deltas

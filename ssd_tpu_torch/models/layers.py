@@ -1,5 +1,6 @@
-"""Shared building blocks: SAME-padded conv, eval-mode batch norm, ConvBN,
-and the MobileNet-v1 depthwise-separable block.
+"""Shared building blocks: SAME-padded conv, batch norm (flax's semantics in
+train and eval mode), ConvBN, and the MobileNet-v1 depthwise-separable
+block.
 
 Layout is NCHW inside the model. Parameters live in f32; each conv casts its
 weight to the activation's dtype (bf16 or f32) when it runs, as flax does
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ssd_tpu_torch.constants import BATCH_NORM_EPSILON
+from ssd_tpu_torch.constants import BATCH_NORM_EPSILON, BATCH_NORM_MOMENTUM
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -72,26 +73,37 @@ class Conv(nn.Module):
     def reset_parameters(self, generator: torch.Generator,
                          std: float | None = None,
                          bias_value: float = 0.0) -> None:
-        """Normal init, std ``1/sqrt(fan_in)`` unless given."""
+        """Normal init, std ``1/sqrt(fan_in)`` unless given. Drawn on the
+        CPU from ``generator`` (a CPU generator), for any device."""
         fan_in = self.weight[0].numel()
         std = 1.0 / math.sqrt(fan_in) if std is None else std
         with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=generator)
+            self.weight.copy_(torch.empty(self.weight.shape).normal_(
+                0.0, std, generator=generator))
             if self.bias is not None:
                 self.bias.fill_(bias_value)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm in the order flax computes it.
+    """Batch norm in the order flax computes it.
 
     ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32, then cast
     to the input's dtype (flax's ``BatchNorm(dtype=bf16)`` promotes the bf16
     input against its f32 statistics and rounds once at the end).
+
+    Eval mode uses the running statistics. Train mode (``self.training``)
+    uses the batch's, as flax's ``_compute_stats`` does: the mean and the
+    mean square over (N, H, W) in f32, and the fast, biased variance
+    ``max(0, E[x^2] - E[x]^2)``; it then updates the running statistics
+    with ``momentum`` as a decay, ``r = momentum * r + (1 - momentum) *
+    batch`` (torch's own ``momentum`` is the complement).
     """
 
-    def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON):
+    def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON,
+                 momentum: float = BATCH_NORM_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -99,8 +111,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.maximum(xf.square().mean(dim=(0, 2, 3))
+                                - mean.square(), mean.new_tensor(0.0))
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(self.running_mean * m
+                                        + mean * (1 - m))
+                self.running_var.copy_(self.running_var * m + var * (1 - m))
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
@@ -112,11 +136,12 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, groups: int = 1, use_norm: bool = True,
-                 act: str | None = "relu6"):
+                 act: str | None = "relu6",
+                 bn_momentum: float = BATCH_NORM_MOMENTUM):
         super().__init__()
         self.conv = Conv(in_ch, out_ch, kernel, stride, groups,
                          bias=not use_norm)
-        self.bn = BatchNorm(out_ch) if use_norm else None
+        self.bn = BatchNorm(out_ch, momentum=bn_momentum) if use_norm else None
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -139,10 +164,12 @@ def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:
 class DepthwiseSeparable(nn.Module):
     """MobileNet-v1 block: depthwise 3x3 + pointwise 1x1, each BN + ReLU6."""
 
-    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 bn_momentum: float = BATCH_NORM_MOMENTUM):
         super().__init__()
-        self.depthwise = ConvBN(in_ch, in_ch, 3, stride, groups=in_ch)
-        self.pointwise = ConvBN(in_ch, out_ch, 1)
+        self.depthwise = ConvBN(in_ch, in_ch, 3, stride, groups=in_ch,
+                                bn_momentum=bn_momentum)
+        self.pointwise = ConvBN(in_ch, out_ch, 1, bn_momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ssd_tpu_torch.constants import MEAN_RGB, STD_RGB
+from ssd_tpu_torch.constants import BATCH_NORM_MOMENTUM, MEAN_RGB, STD_RGB
 from ssd_tpu_torch.models.layers import (BatchNorm, DepthwiseSeparable,
                                          activation)
 
@@ -72,6 +72,11 @@ class FoldedS2DConv(nn.Module):
     correction uses ``128 - mean`` and is added. The conv runs in f32 on
     operands rounded to the compute dtype, because the correction cancels a
     term of comparable magnitude; the result is rounded once, after it.
+
+    In train mode with a bf16 compute dtype the conv runs in bf16 and is
+    then widened before the correction, as the JAX package's differentiated
+    path does (its conv transpose rule refuses the mixed-precision form).
+    Gradients reach ``weight`` through the STD fold and the correction map.
     """
 
     def __init__(self, features: int, fold_normalize: bool = False):
@@ -94,8 +99,13 @@ class FoldedS2DConv(nn.Module):
         xs = xs.contiguous(memory_format=torch.channels_last)
         if not self.fold_normalize:
             return F.conv2d(xs, self.weight.to(dtype), padding=1)
-        wp = (self.weight / self.std48.view(1, 48, 1, 1)).to(dtype).float()
-        y = F.conv2d(xs.float(), wp, padding=1)
+        wp = (self.weight / self.std48.view(1, 48, 1, 1)).to(dtype)
+        if self.training and dtype != torch.float32:
+            y = F.conv2d(xs, wp, padding=1).float()
+            wp = wp.float()
+        else:
+            wp = wp.float()
+            y = F.conv2d(xs.float(), wp, padding=1)
         ph, pw = xs.shape[-2:]
         if packed_in:
             corr = _border_correction(wp, ph, pw, 128.0 - self.mean48)
@@ -107,10 +117,11 @@ class FoldedS2DConv(nn.Module):
 class Dense4Stem(nn.Module):
     """dense4 early schedule: image -> (N, features, H/4, W/4), BN + ReLU6."""
 
-    def __init__(self, features: int, fold_normalize: bool = False):
+    def __init__(self, features: int, fold_normalize: bool = False,
+                 bn_momentum: float = BATCH_NORM_MOMENTUM):
         super().__init__()
         self.conv = FoldedS2DConv(features, fold_normalize)
-        self.bn = BatchNorm(features)
+        self.bn = BatchNorm(features, momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return activation(self.bn(self.conv(x, dtype)), "relu6")
@@ -121,20 +132,22 @@ class MobileNetV1(nn.Module):
 
     def __init__(self, width_multiplier: float = 1.0,
                  stem_schedule: str = "dense4",
-                 stem_fold_normalize: bool = False):
+                 stem_fold_normalize: bool = False,
+                 bn_momentum: float = BATCH_NORM_MOMENTUM):
         super().__init__()
         if stem_schedule != "dense4":
             raise NotImplementedError(
                 f"stem_schedule={stem_schedule!r}: the port builds dense4; "
                 "the reference schedule is queued in ROADMAP.md")
         w = lambda ch: _width(ch, width_multiplier)  # noqa: E731
-        self.stem = Dense4Stem(w(128), stem_fold_normalize)  # /4
+        self.stem = Dense4Stem(w(128), stem_fold_normalize, bn_momentum)  # /4
         table = [("ds3", 128, 1), ("ds4", 256, 2), ("ds5", 256, 1),
                  ("ds6", 512, 2)] + [(f"ds{7 + i}", 512, 1) for i in range(5)]
         table += [("ds12", 1024, 2), ("ds13", 1024, 1)]
         in_ch = w(128)
         for name, ch, stride in table:
-            self.add_module(name, DepthwiseSeparable(in_ch, w(ch), stride))
+            self.add_module(name, DepthwiseSeparable(in_ch, w(ch), stride,
+                                                     bn_momentum))
             in_ch = w(ch)
         self.out_channels = (w(256), w(512), w(1024))
 

@@ -1,4 +1,4 @@
-"""Box geometry on tensors: areas, IoU, decode, clipping.
+"""Box geometry on tensors: areas, IoU, encode, decode, clipping.
 
 Boxes are ``(..., 4)`` tensors of ``(ymin, xmin, ymax, xmax)``, normalized
 to ``[0, 1]``. The arithmetic follows ``ssd_tpu/ops/box_utils.py`` operation
@@ -44,14 +44,40 @@ def to_center_form(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack([ymin + 0.5 * h, xmin + 0.5 * w, h, w], dim=-1)
 
 
+def to_corner_form(boxes: torch.Tensor) -> torch.Tensor:
+    """``(cy, cx, h, w) -> (ymin, xmin, ymax, xmax)``."""
+    cy, cx, h, w = boxes.unbind(-1)
+    return torch.stack(
+        [cy - 0.5 * h, cx - 0.5 * w, cy + 0.5 * h, cx + 0.5 * w], dim=-1)
+
+
+def encode(boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Corner-form boxes -> regression codes ``(ty, tx, th, tw)``:
+    ``ty = (cy - cy_a) / h_a * s_y``, ``th = log(h / h_a) * s_h`` (same for
+    x and w), with every size clamped to ``EPSILON`` first."""
+    cy, cx, h, w = to_center_form(boxes).unbind(-1)
+    cya, cxa, ha, wa = to_center_form(anchors).unbind(-1)
+    ha, wa = ha.clamp_min(EPSILON), wa.clamp_min(EPSILON)
+    h, w = h.clamp_min(EPSILON), w.clamp_min(EPSILON)
+    sy, sx, sh, sw = SCALE_FACTORS
+    return torch.stack([(cy - cya) / ha * sy, (cx - cxa) / wa * sx,
+                        torch.log(h / ha) * sh, torch.log(w / wa) * sw],
+                       dim=-1)
+
+
 def decode(codes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
-    """Regression codes ``(ty, tx, th, tw)`` -> corner-form boxes."""
+    """Regression codes ``(ty, tx, th, tw)`` -> corner-form boxes.
+
+    Differentiable as JAX differentiates it: the size clamp is a
+    ``minimum``, whose gradient splits at a tie (``clamp_max`` would not).
+    """
     ty, tx, th, tw = codes.unbind(-1)
     cya, cxa, ha, wa = to_center_form(anchors).unbind(-1)
     sy, sx, sh, sw = SCALE_FACTORS
     # Clamp the size terms so exp() cannot overflow for garbage logits.
-    th = (th / sh).clamp_max(10.0)
-    tw = (tw / sw).clamp_max(10.0)
+    ten = codes.new_tensor(10.0)
+    th = torch.minimum(th / sh, ten)
+    tw = torch.minimum(tw / sw, ten)
     cy = ty / sy * ha + cya
     cx = tx / sx * wa + cxa
     h = torch.exp(th) * ha

@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module of the package
+    assert int(out.stdout.strip()) >= 30  # every module of the package
 
 
 def test_entry_points_default_to_cuda():
@@ -71,3 +71,26 @@ def test_cpu_tensors_never_launch_the_kernel():
         nms_cuda.suppress_cuda(torch.from_numpy(boxes),
                                torch.zeros(2, 3, 8, dtype=torch.int32),
                                torch.zeros(2, 3, 8), 0.5)
+
+
+def test_cpu_matching_never_loads_the_kernel():
+    """``match_anchors`` on CPU tensors takes the plain version: no launch,
+    and ``match.cu`` is never built or loaded."""
+    from ssd_tpu_torch import _build
+    from ssd_tpu_torch.config import MatcherConfig
+    from ssd_tpu_torch.ops import matching_cuda
+    rng = np.random.default_rng(1)
+    lo = rng.uniform(0, 0.7, (300, 2))
+    anchors = np.concatenate([lo, lo + 0.2], -1).astype(np.float32)
+    gt = anchors[None, ::37].copy()
+    matching_cuda.launches = 0
+    matches = matching_cuda.match_anchors(
+        torch.from_numpy(anchors), torch.from_numpy(gt),
+        torch.tensor([len(gt[0])], dtype=torch.int32), MatcherConfig())
+    assert int((matches >= 0).sum()) >= len(gt[0])
+    assert matching_cuda.launches == 0
+    assert matching_cuda._lib is None and "match" not in _build._libs
+    with pytest.raises(ValueError, match="CUDA"):
+        matching_cuda.match_core_cuda(torch.from_numpy(anchors),
+                                      torch.from_numpy(gt),
+                                      torch.tensor([1], dtype=torch.int32))

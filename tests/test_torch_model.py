@@ -140,7 +140,7 @@ def test_dense4_stem_matches(rng, dtype, hw, feed):
     x = images if feed == "raw" else jax_pack_s2d(images)
     variables = _module_variables(jmod, x)
     want = jmod.apply(variables, x)
-    tmod = Dense4Stem(32, fold_normalize=True)
+    tmod = Dense4Stem(32, fold_normalize=True).eval()  # JAX applies in eval mode
     tmod.load_state_dict(convert_variables(variables, tmod), strict=True)
     got = _nhwc(tmod(torch.from_numpy(x), DTYPES[dtype]))
     # bf16: the output (ReLU6, <= 6) is one bf16 rounding of an f32 value
@@ -154,7 +154,7 @@ def test_dense4_stem_unfolded_matches(rng):
     jmod = JaxDense4Stem(16, compute_dtype="float32")
     x = rng.normal(0.0, 1.0, (2, 24, 20, 3)).astype(np.float32)
     variables = _module_variables(jmod, x)
-    tmod = Dense4Stem(16, fold_normalize=False)
+    tmod = Dense4Stem(16, fold_normalize=False).eval()  # JAX applies in eval mode
     tmod.load_state_dict(convert_variables(variables, tmod), strict=True)
     got = _nhwc(tmod(torch.from_numpy(x), torch.float32))
     _close(got, jmod.apply(variables, x), "float32", 0, 0)
@@ -168,7 +168,7 @@ def test_depthwise_separable_stride2_matches(rng, dtype, hw):
     xj = jnp.asarray(x, jnp.dtype(dtype))
     variables = _module_variables(jmod, xj)
     want = jmod.apply(variables, xj)
-    tmod = DepthwiseSeparable(16, 24, 2)
+    tmod = DepthwiseSeparable(16, 24, 2).eval()  # JAX applies in eval mode
     tmod.load_state_dict(convert_variables(variables, tmod), strict=True)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(DTYPES[dtype])
     got = _nhwc(tmod(xt))
