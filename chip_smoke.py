@@ -21,6 +21,23 @@ any failure raises:
    through ``Predictor.predict``, a list of mixed-size images and a
    letterboxed request, with the NMS launches of that run counted; on one
    batch the kernel path and the plain ``batched_nms`` agree exactly;
+   reference_serve: the same for ``configs/coco_mobilenet_640.json`` (the
+   reference MobileNet-v1 schedule, stem at stride 2 then ds1 and ds2) on
+   the raw uint8 feed;
+   reference_golden: ``ssd_tpu_torch/assets/golden_cells_v1.npz`` (the
+   JAX package's ``tests/goldens/predict_cells_v1.npz`` with its weights)
+   served in f32: raw slices at the golden bars (atol 2e-4, rtol 2e-3) and
+   detections set-equal to JAX's under the golden rule;
+   fused_early: the fused ds1+ds2 kernel, driven through its entry point
+   (``ssd_tpu_torch.tools.bench_fused_early.run``) on the stem output of
+   the served reference model (x1.0) on a 640 px batch of 32, with that
+   model's ds1/ds2 batch norm randomized so the fold is exercised, its
+   launches counted; then against its plain version at that shape and at
+   the edge cases (one image, 16 x 16, 48 x 80, C1 of 8 and 16, saturated
+   relu6): every element within one bf16 ulp, the bit-equal share printed;
+   against the model's own ds1+ds2 modules at atol 0.08, rtol 0.05, the
+   first and last rows and columns on their own; with its time, the plain
+   version's, the modules' and the card's bound;
 6. match: the anchor-matching kernel against its plain PyTorch version on
    the card, at the flagship training shape (N=64, A=76 725, M=100, crowded
    640 px scenes of 80 classes) and at the edge cases (images without gts,
@@ -61,21 +78,25 @@ from ssd_tpu_torch import _build
 from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
 from ssd_tpu_torch.convert import load_npz_artifact
 from ssd_tpu_torch.data import synthetic
-from ssd_tpu_torch.models.detector import Detector
-from ssd_tpu_torch.ops import (box_utils, losses, matching, matching_cuda, nms,
-                               nms_cuda)
+from ssd_tpu_torch.models.detector import Detector, normalize_images
+from ssd_tpu_torch.models.fpn import flatten_levels
+from ssd_tpu_torch.ops import (box_utils, fused_early, fused_early_cuda,
+                               losses, matching, matching_cuda, nms, nms_cuda)
 from ssd_tpu_torch.ops.anchors import generate_anchors
-from ssd_tpu_torch.ops.ingest import pack_s2d
 from ssd_tpu_torch.ops.postprocess import select_candidates_cells
 from ssd_tpu_torch.ops.targets import create_targets
 from ssd_tpu_torch.predictor import Predictor
+from ssd_tpu_torch.tools import bench_fused_early
+from ssd_tpu_torch.tools.bench_fused_early import cuda_ms
 from ssd_tpu_torch.train import EXPORT_NAME, train
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
                                       make_train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "coco_mobilenet_640_flagship.json")
+REFERENCE = os.path.join(ROOT, "configs", "coco_mobilenet_640.json")
 ASSET = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_v1.npz")
+GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets", "golden_cells_v1.npz")
 TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
@@ -104,21 +125,6 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean CUDA-event milliseconds of ``fn()`` over ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ------------------------------------------------------------------ NMS
@@ -307,8 +313,11 @@ def _check_output(out: dict, n: int, max_boxes: int) -> None:
     assert (out["boxes"] >= 0).all() and (out["boxes"] <= 1).all()
 
 
-def phase_flagship(power_line: str) -> int:
-    cfg = Config.load(FLAGSHIP)
+def phase_serve(phase: str, config: str, power_line: str) -> int:
+    """A full-width bf16 config served through ``Predictor.predict``: 10
+    batches of 32, a mixed-size list and a letterboxed request, with the NMS
+    launches of that run counted; returns them."""
+    cfg = Config.load(config)
     assert cfg.model.compute_dtype == "bfloat16"
     pred = Predictor(cfg, None, device=DEVICE)  # weights seeded from 0
     with torch.no_grad():
@@ -344,13 +353,14 @@ def phase_flagship(power_line: str) -> int:
     if launches != 12:
         raise AssertionError(f"{launches} NMS launches, want one per request")
 
-    # ---- host side of one batch: the numpy pack and the copy to the card
+    # ---- host side of one batch: the feed (the dense4 pack, or the raw
+    # batch as it is) and the copy to the card
     t0 = time.perf_counter()
-    packed = pack_s2d(batches[0])
-    pack_ms = (time.perf_counter() - t0) * 1e3
+    host_feed = pred._feed(batches[0])
+    feed_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    feed = torch.from_numpy(packed).to(DEVICE)
+    feed = torch.from_numpy(host_feed).to(DEVICE)
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
 
@@ -379,7 +389,9 @@ def phase_flagship(power_line: str) -> int:
             boxes, scores, cfg.nms), iters=5)
 
     p50 = float(np.median(batch_ms))
-    emit({"phase": "flagship", "config": os.path.relpath(FLAGSHIP, ROOT),
+    emit({"phase": phase, "config": os.path.relpath(config, ROOT),
+          "stem_schedule": cfg.model.stem_schedule,
+          "feed": "packed s8" if pred._packed else "raw uint8",
           "dtype": "bfloat16", "batch": 32, "image": [h, w],
           "anchors": cfg.num_anchors(), "weights": "seeded (seed 0)",
           "class_bias": FLAGSHIP_CLASS_BIAS,
@@ -390,10 +402,202 @@ def phase_flagship(power_line: str) -> int:
           "batch_ms": batch_ms, "p50_batch_ms": p50,
           "img_per_s": 32 / p50 * 1e3,
           "device_ms": {"model": fwd, "select": sel, "nms": post},
-          "host_ms": {"pack_s2d": pack_ms, "to_device": h2d_ms},
+          "host_ms": {"feed": feed_ms, "to_device": h2d_ms},
           "peak_mem_gib": peak_gb,
           "note": "unoptimised eager bring-up reading on " + power_line})
     return launches
+
+
+def phase_reference_golden() -> None:
+    """The JAX package's cells golden served in f32 on the card."""
+    cfg, state = load_npz_artifact(GOLDEN)
+    with np.load(GOLDEN) as z:
+        images = z["images"]
+        want = {k[len("jax_"):]: z[k] for k in z.files if k.startswith("jax_")}
+    assert cfg.model.stem_schedule == "reference"
+    assert cfg.model.compute_dtype == "float32"
+    det = Detector(cfg, state, device=DEVICE)
+    norm = torch.from_numpy((images.astype(np.float32) - 127.5) / 64.0)
+    with torch.inference_mode():
+        logits, deltas = flatten_levels(
+            det.model(norm.to(DEVICE), raw_input=False), cfg.num_classes)
+    got = {"logits_slice": logits[:, :64], "deltas_slice": deltas[:, :64],
+           "anchors_head": det.anchors[:64]}
+    errs = {}
+    for k, g in got.items():
+        g = g.float().cpu().numpy()
+        errs[k] = float(np.abs(g - want[k]).max())
+        if not np.allclose(g, want[k], atol=2e-4, rtol=2e-3):
+            raise AssertionError(f"golden {k} off by {errs[k]}")
+    out = det.predict(images)
+    det_got = {k: getattr(out, k).cpu().numpy() for k in DET_KEYS}
+    matched, total = set_match(det_got, want)
+    nb_equal = bool((det_got["num_boxes"] == want["num_boxes"]).all())
+    emit({"phase": "reference_golden", "images": len(images),
+          "config": "tests/test_golden.py CFG, select=cells (f32)",
+          "max_abs_err": errs, "num_boxes": det_got["num_boxes"].tolist(),
+          "num_boxes_equal": nb_equal, "matched": matched, "total": total})
+    if matched != total or not nb_equal or total == 0:
+        raise AssertionError(f"golden detections differ: {matched}/{total}")
+
+
+# ------------------------------------------------------------------ fused early
+
+EARLY_BARS = dict(atol=0.08, rtol=0.05)  # tests/test_fused_early.py's
+
+
+def randomize_early_bn(backbone, seed: int, gain: float = 1.0) -> None:
+    """ds1/ds2 batch norm as ``tests/test_fused_early.py`` draws it: scale
+    U(0.5, 1.5) (times ``gain`` for the pointwise ones), bias and mean
+    N(0, 0.3), variance U(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for ds in ("ds1", "ds2"):
+            for part in ("depthwise", "pointwise"):
+                bn = getattr(getattr(backbone, ds), part).bn
+                c = bn.weight.shape[0]
+                g = gain if part == "pointwise" else 1.0
+                for t, v in ((bn.weight, rng.uniform(0.5, 1.5, c) * g),
+                             (bn.bias, rng.normal(0, 0.3, c)),
+                             (bn.running_mean, rng.normal(0, 0.3, c)),
+                             (bn.running_var, rng.uniform(0.5, 2.0, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of the bf16 spacing at the larger
+    magnitude of the two (2^(floor(log2 m) - 7)); equal values count 0."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(
+        mag > 0, mag, torch.ones_like(mag)))) - 7)
+    diff = (g - w).abs()
+    return float(torch.where(diff > 0, diff / ulp, torch.zeros_like(diff))
+                 .max())
+
+
+def _close_to_modules(got: torch.Tensor, want: torch.Tensor) -> None:
+    """The JAX kernel test's bars, the first and last rows and columns on
+    their own (NCHW: rows are dim 2, columns dim 3)."""
+    g, w = got.float(), want.float()
+    for part in (slice(None), 0, -1):
+        for dim in (2, 3):
+            gp = g if part == slice(None) else g.select(dim, part)
+            wp = w if part == slice(None) else w.select(dim, part)
+            if not torch.allclose(gp, wp, **EARLY_BARS):
+                raise AssertionError(
+                    f"fused vs modules: {float((gp - wp).abs().max())} off")
+
+
+def check_early_case(name: str, backbone, x: torch.Tensor,
+                     modules: bool = True, extra: dict | None = None) -> dict:
+    """Kernel vs plain on the card (within one bf16 ulp, share bit-equal),
+    and vs the model's ds1+ds2 modules at the JAX kernel test's bars; the
+    row, with ``extra`` merged in, is printed and returned."""
+    folded = fused_early.fold_early_params(backbone)
+    with torch.inference_mode():
+        got = fused_early_cuda.fused_ds1_ds2_cuda(x, folded)
+        want = fused_early.fused_ds1_ds2_plain(x, folded)
+        ref = bench_fused_early.unfused(backbone, x) if modules else None
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not got.is_contiguous(
+            memory_format=torch.channels_last):
+        raise AssertionError(f"fused_early {name}: shape or layout")
+    ulps = bf16_ulps(got, want)
+    equal = float((got == want).float().mean())
+    row = {"phase": "fused_early", "case": name, "shape_in": list(x.shape),
+           "shape_out": list(got.shape), "max_ulps": ulps,
+           "bit_equal_share": equal,
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "saturated_share": float((got == 6).float().mean()),
+           "zero_share": float((got == 0).float().mean())}
+    if ulps > 1.0:
+        raise AssertionError(f"fused_early {name}: {ulps} bf16 ulps off")
+    if modules:
+        _close_to_modules(got, ref)
+        row["max_abs_diff_modules"] = float(
+            (got.float() - ref.float()).abs().max())
+    row.update(extra or {})
+    emit(row)
+    return row
+
+
+def early_bound(x: torch.Tensor, folded: dict) -> dict:
+    """The least time of the fused function on these inputs: each input
+    and weight byte read once and the output written once, over the HBM
+    rate; its multiply-adds (two operations each) over the f32 peak."""
+    n, c1, h, w = x.shape
+    c2, c3 = folded["pw1_k"].shape[1], folded["pw2_k"].shape[1]
+    ho, wo = h // 2, w // 2
+    nbytes = (x.numel() * 2 + n * c3 * ho * wo * 2
+              + sum(t.numel() * 4 for t in folded.values()))
+    macs = n * (h * w * c1 * (9 + c2) + ho * wo * c2 * (9 + c3))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / F32_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "macs": macs, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_fused_early(power_line: str) -> tuple[dict, int]:
+    """K3 through its entry point on the served model's stem output, then
+    against its plain version and the modules. Returns (row, launches)."""
+    cfg = Config.load(REFERENCE)
+    det = Detector(cfg, device=DEVICE)  # the served model, seeded from 0
+    backbone = det.model.backbone
+    randomize_early_bn(backbone, seed=3)
+    images = np.random.default_rng(1).integers(
+        0, 256, (32, *cfg.image_hw(), 3), dtype=np.uint8)
+    with torch.inference_mode():
+        x = backbone.stem_output(
+            normalize_images(torch.from_numpy(images).to(DEVICE)),
+            torch.bfloat16)
+    assert x.is_contiguous(memory_format=torch.channels_last), "stem layout"
+
+    # ---- the main path: the entry point, its launches counted
+    fused_early_cuda.launches = 0
+    bench = bench_fused_early.run(backbone, x, iters=20)
+    launches = fused_early_cuda.launches
+    if launches < 1:
+        raise AssertionError("the entry point did not launch the kernel")
+
+    folded = fused_early.fold_early_params(backbone)
+    with torch.inference_mode():
+        plain_ms = cuda_ms(lambda: fused_early.fused_ds1_ds2_plain(
+            x, folded), iters=2, warmup=1)
+    main = check_early_case("served_b32", backbone, x, extra={
+        "launches_entry_point": launches, "ms": bench["fused_ms"],
+        "unfused_ms": bench["unfused_ms"], "plain_ms": plain_ms,
+        "entry_point_max_abs_diff": bench["max_abs_diff"],
+        **early_bound(x, folded), "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused four "
+                        "convs; unfused_ms is the model's own modules "
+                        "(cuDNN, bf16, each conv rounded)",
+        "note": "unoptimised bring-up reading on " + power_line})
+    del x, det, backbone
+
+    # ---- edge cases: kernel vs plain, and vs the modules
+    rng = np.random.default_rng(4)
+
+    def case(name, width, n, h, w, scale=1.5, gain=1.0):
+        bb = bench_fused_early.reference_backbone(width, seed=5)
+        randomize_early_bn(bb, seed=6, gain=gain)
+        c1 = bb.ds1.depthwise.conv.weight.shape[0]
+        xs = rng.normal(0.0, scale, (n, h, w, c1)).astype(np.float32)
+        xe = torch.from_numpy(xs).to(DEVICE).to(torch.bfloat16).permute(
+            0, 3, 1, 2)
+        return check_early_case(name, bb, xe, modules=gain == 1.0)
+
+    case("n1", 1.0, 1, 64, 64)
+    case("16x16", 1.0, 2, 16, 16)
+    case("48x80", 1.0, 2, 48, 80)
+    case("c1_8", 0.25, 4, 40, 56)
+    case("c1_16", 0.5, 4, 40, 56)
+    sat = case("saturated", 1.0, 2, 48, 48, scale=100.0, gain=8.0)
+    if sat["saturated_share"] < 0.01:
+        raise AssertionError("saturated case did not saturate relu6")
+    torch.cuda.empty_cache()
+    return main, launches
+
 
 # ------------------------------------------------------------------ matching
 
@@ -700,14 +904,19 @@ def main() -> int:
 
     main_nms = phase_nms()
     phase_sanity()
-    nms_launches = phase_flagship(power_line)
+    nms_launches = phase_serve("flagship", FLAGSHIP, power_line)
+    nms_launches_reference = phase_serve("reference_serve", REFERENCE,
+                                         power_line)
+    phase_reference_golden()
+    main_early, early_launches = phase_fused_early(power_line)
     main_match = phase_match()
     phase_train_sanity()
     match_launches = phase_train_flagship(power_line)
 
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",
-        "replaces": "ssd_tpu/ops/nms_pallas.py:78", "launches": nms_launches,
+        "replaces": "ssd_tpu/ops/nms_pallas.py:78",
+        "launches": nms_launches + nms_launches_reference,
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
         "bound_by": main_nms["bound_by"], "library_ms": None}, {
@@ -718,7 +927,16 @@ def main() -> int:
         "max_abs_err": main_match["max_abs_err"], "ms": main_match["ms"],
         "plain_ms": main_match["plain_ms"],
         "bound_ms": main_match["bound_ms"],
-        "bound_by": main_match["bound_by"], "library_ms": None}]})
+        "bound_by": main_match["bound_by"], "library_ms": None}, {
+        "name": "fused_early", "route": "cuda",
+        "source": "ssd_tpu_torch/csrc/fused_early.cu",
+        "replaces": "ssd_tpu/ops/fused_early.py:187",
+        "launches": early_launches,
+        "max_abs_err": main_early["max_abs_err"], "ms": main_early["ms"],
+        "plain_ms": main_early["plain_ms"],
+        "unfused_ms": main_early["unfused_ms"],
+        "bound_ms": main_early["bound_ms"],
+        "bound_by": main_early["bound_by"], "library_ms": None}]})
     print(power_line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

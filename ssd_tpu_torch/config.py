@@ -72,8 +72,8 @@ class ModelConfig:
     bn_momentum: float = 0.997
     stem_space_to_depth: bool = False
     remat_early: str = "none"
-    # "dense4": space-to-depth(4) stem straight to stride 4 (the port's
-    # schedule); "reference": the MobileNet table (not ported yet).
+    # "dense4": space-to-depth(4) stem straight to stride 4; "reference":
+    # the MobileNet table (stem at stride 2, ds1, ds2).
     stem_schedule: str = "reference"
 
 

@@ -1,1 +1,2 @@
-"""The port's models: MobileNet-v1 (dense4), FPN, RetinaNet head."""
+"""The port's models: MobileNet-v1 (dense4 and reference schedules), FPN,
+RetinaNet head."""

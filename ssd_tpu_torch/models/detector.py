@@ -1,8 +1,8 @@
 """Detector: backbone -> FPN -> heads, the training loss, and prediction.
 
-``SSDModel`` maps raw images (NHWC uint8, or the packed ``(N, H/4, W/4,
-48)`` s8 feed) to the per-level raw head maps. ``Detector`` holds the model
-and the anchors on a device and runs
+``SSDModel`` maps raw images (NHWC uint8, or for dense4 the packed ``(N,
+H/4, W/4, 48)`` s8 feed) to the per-level raw head maps. ``Detector``
+holds the model and the anchors on a device and runs
 
 * ``loss``: the model in train mode (batch-statistics BN, running stats
   updated), target creation with the matching kernel, the per-level (or
@@ -21,9 +21,11 @@ import torch
 from torch import nn
 
 from ssd_tpu_torch.config import Config
+from ssd_tpu_torch.constants import MEAN_RGB, STD_RGB
 from ssd_tpu_torch.device import resolve_device
 from ssd_tpu_torch.models.fpn import FPN, RetinaHead, flatten_levels
-from ssd_tpu_torch.models.layers import BatchNorm, Conv, compute_dtype
+from ssd_tpu_torch.models.layers import (BatchNorm, Conv, compute_dtype,
+                                         space_to_depth)
 from ssd_tpu_torch.models.mobilenet import FoldedS2DConv, MobileNetV1
 from ssd_tpu_torch.ops import losses
 from ssd_tpu_torch.ops.anchors import generate_anchors
@@ -32,13 +34,25 @@ from ssd_tpu_torch.ops.postprocess import postprocess_cells
 from ssd_tpu_torch.ops.targets import create_targets
 
 
+def normalize_images(images: torch.Tensor) -> torch.Tensor:
+    """uint8 NHWC -> ImageNet-normalized bf16 NHWC, computed in f32 and
+    rounded once (the JAX package's ``normalize_images``)."""
+    mean = torch.from_numpy(MEAN_RGB).to(images.device)
+    std = torch.from_numpy(STD_RGB).to(images.device)
+    return ((images.float() - mean) / std).to(torch.bfloat16)
+
+
 def check_supported(cfg: Config) -> None:
-    """Raise on a configuration this slice of the port does not build."""
+    """Raise on a configuration the port does not build yet."""
     m, n = cfg.model, cfg.nms
+    if m.stem_schedule == "dense4" and m.stem_space_to_depth:
+        raise ValueError(
+            "stem_schedule='dense4' already space-to-depth-packs the stem; "
+            "stem_space_to_depth must stay False")
     unsupported = [
         (m.backbone != "mobilenet", f"model.backbone={m.backbone!r}"),
-        (m.stem_schedule != "dense4", f"model.stem_schedule={m.stem_schedule!r}"),
-        (m.stem_space_to_depth, "model.stem_space_to_depth=true"),
+        (m.stem_schedule not in ("dense4", "reference"),
+         f"model.stem_schedule={m.stem_schedule!r}"),
         (m.norm != "batch", f"model.norm={m.norm!r}"),
         (m.compute_dtype not in ("bfloat16", "float32"),
          f"model.compute_dtype={m.compute_dtype!r}"),
@@ -54,11 +68,14 @@ def check_supported(cfg: Config) -> None:
 
 
 class SSDModel(nn.Module):
-    """Backbone + FPN + shared subnets on raw input.
+    """Backbone + FPN + shared subnets.
 
-    The normalize affine is folded into the dense4 stem conv, so the model
+    dense4: the normalize affine is folded into the stem conv, so the model
     takes the raw uint8 image (or the packed s8 feed) and the normalized
-    full-resolution image never exists.
+    full-resolution image never exists. reference: a raw uint8 batch is
+    normalized to bf16 first, whatever the compute dtype (f32 convs then
+    widen the bf16 pixels, as in the JAX package); ``raw_input=False`` takes
+    an already normalized float batch as it is.
     """
 
     def __init__(self, cfg: Config):
@@ -68,18 +85,38 @@ class SSDModel(nn.Module):
         m = cfg.model
         self.backbone = MobileNetV1(m.width_multiplier, m.stem_schedule,
                                     stem_fold_normalize=True,
-                                    bn_momentum=m.bn_momentum)
+                                    bn_momentum=m.bn_momentum,
+                                    stem_stride=1 if m.stem_space_to_depth
+                                    else 2)
         self.fpn = FPN(self.backbone.out_channels, m.fpn_channels)
         self.head = RetinaHead(
             m.fpn_channels, cfg.num_classes, cfg.anchors.num_anchors_per_cell,
             m.head_depth, m.head_channels or m.fpn_channels,
             m.head_final_kernel)
 
-    def forward(self, images: torch.Tensor) -> list:
-        """images NHWC uint8 or packed s8 -> ``[(cls (N, H, W, K*C), box (N,
-        H, W, K*4)), ...]`` in the compute dtype."""
+    def backbone_input(self, images: torch.Tensor,
+                       raw_input: bool = True) -> torch.Tensor:
+        """What the backbone takes: for the reference schedule the
+        normalized (and, with ``stem_space_to_depth``, space-to-depth(2)
+        packed) NHWC image; for dense4 the raw image as it is."""
+        m = self.cfg.model
+        if m.stem_schedule == "dense4":
+            if not raw_input:
+                raise ValueError("the dense4 stem folds the normalization: "
+                                 "it takes the raw image")
+            return images
+        if raw_input:
+            images = normalize_images(images)
+        if m.stem_space_to_depth:
+            images = space_to_depth(images, 2)
+        return images
+
+    def forward(self, images: torch.Tensor, raw_input: bool = True) -> list:
+        """images NHWC (uint8 or, for dense4, packed s8; normalized floats
+        with ``raw_input=False``) -> ``[(cls (N, H, W, K*C), box (N, H, W,
+        K*4)), ...]`` in the compute dtype."""
         dtype = compute_dtype(self.cfg.model.compute_dtype)
-        feats = self.backbone(images, dtype)
+        feats = self.backbone(self.backbone_input(images, raw_input), dtype)
         return self.head(self.fpn(feats))
 
     def reset_parameters(self, seed: int) -> None:

@@ -29,6 +29,16 @@ def compute_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC space-to-depth: ``(N, H, W, C) -> (N, H/b, W/b, C*b*b)``, channel
+    ``(dy*b + dx)*C + c`` holding pixel ``(dy, dx)`` channel ``c`` of each
+    ``b x b`` block (the JAX package's order)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // block, w // block, c * block * block)
+
+
 def same_pad(in_size: int, kernel: int, stride: int) -> tuple[int, int]:
     """XLA's SAME split along one axis: ``(before, after)``.
 

@@ -1,11 +1,16 @@
-"""MobileNet-v1 feature extractor on the dense4 schedule.
+"""MobileNet-v1 feature extractor, on either early schedule.
 
-Returns the stride-8/16/32 maps ``c3``, ``c4``, ``c5`` for the FPN. The
-dense4 stem packs the image space-to-depth(4) to ``(H/4, W/4, 48)`` and runs
-one dense 3x3 conv to ``w(128)`` channels at stride 4, with the ImageNet
-normalize affine folded into that conv (``FoldedS2DConv``); ds3-ds13 follow
-the MobileNet-v1 table. The ``reference`` schedule (stem at stride 2, ds1,
-ds2) is not ported yet.
+Returns the stride-8/16/32 maps ``c3``, ``c4``, ``c5`` for the FPN. Two
+schedules reach stride 4, then ds3-ds13 follow the MobileNet-v1 table:
+
+* ``reference``: the table itself. ``stem`` is a 3x3 ``ConvBN`` to ``w(32)``
+  at stride 2 on the normalized image (stride 1 when the image arrives
+  space-to-depth(2)-packed, 12 channels), then ``ds1`` (``w(32)`` to
+  ``w(64)``) and ``ds2`` (``w(64)`` to ``w(128)``, stride 2).
+  ``ops/fused_early_cuda.py`` fuses ds1 and ds2 into one kernel.
+* ``dense4``: the stem packs the image space-to-depth(4) to ``(H/4, W/4,
+  48)`` and runs one dense 3x3 conv to ``w(128)`` channels at stride 4, with
+  the ImageNet normalize affine folded into that conv (``FoldedS2DConv``).
 """
 
 from __future__ import annotations
@@ -16,8 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_MOMENTUM, MEAN_RGB, STD_RGB
-from ssd_tpu_torch.models.layers import (BatchNorm, DepthwiseSeparable,
-                                         activation)
+from ssd_tpu_torch.models.layers import (BatchNorm, ConvBN,
+                                         DepthwiseSeparable, activation)
 
 
 def _width(ch: int, multiplier: float) -> int:
@@ -128,19 +133,32 @@ class Dense4Stem(nn.Module):
 
 
 class MobileNetV1(nn.Module):
-    """``forward(images NHWC, dtype) -> {"c3", "c4", "c5"}`` in NCHW."""
+    """``forward(images NHWC, dtype) -> {"c3", "c4", "c5"}`` in NCHW.
+
+    ``reference``: the images are normalized floats, ``(N, H, W, 3)`` with
+    ``stem_stride=2`` or space-to-depth(2)-packed ``(N, H/2, W/2, 12)`` with
+    ``stem_stride=1``; they are cast to ``dtype`` first. ``dense4``: raw
+    uint8 images or the packed s8 feed (``Dense4Stem``).
+    """
 
     def __init__(self, width_multiplier: float = 1.0,
                  stem_schedule: str = "dense4",
                  stem_fold_normalize: bool = False,
-                 bn_momentum: float = BATCH_NORM_MOMENTUM):
+                 bn_momentum: float = BATCH_NORM_MOMENTUM,
+                 stem_stride: int = 2):
         super().__init__()
-        if stem_schedule != "dense4":
-            raise NotImplementedError(
-                f"stem_schedule={stem_schedule!r}: the port builds dense4; "
-                "the reference schedule is queued in ROADMAP.md")
         w = lambda ch: _width(ch, width_multiplier)  # noqa: E731
-        self.stem = Dense4Stem(w(128), stem_fold_normalize, bn_momentum)  # /4
+        self.stem_schedule = stem_schedule
+        if stem_schedule == "dense4":
+            self.stem = Dense4Stem(w(128), stem_fold_normalize,
+                                   bn_momentum)  # /4
+        elif stem_schedule == "reference":
+            self.stem = ConvBN(3 if stem_stride == 2 else 12, w(32), 3,
+                               stem_stride, bn_momentum=bn_momentum)  # /2
+            self.ds1 = DepthwiseSeparable(w(32), w(64), 1, bn_momentum)
+            self.ds2 = DepthwiseSeparable(w(64), w(128), 2, bn_momentum)  # /4
+        else:
+            raise ValueError(f"unknown stem_schedule {stem_schedule!r}")
         table = [("ds3", 128, 1), ("ds4", 256, 2), ("ds5", 256, 1),
                  ("ds6", 512, 2)] + [(f"ds{7 + i}", 512, 1) for i in range(5)]
         table += [("ds12", 1024, 2), ("ds13", 1024, 1)]
@@ -151,8 +169,18 @@ class MobileNetV1(nn.Module):
             in_ch = w(ch)
         self.out_channels = (w(256), w(512), w(1024))
 
+    def stem_output(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The reference schedule's stem: normalized NHWC images -> ``(N,
+        w(32), H/2, W/2)``, the input of ds1 (and of the fused kernel)."""
+        if self.stem_schedule != "reference":
+            raise ValueError("stem_output is the reference schedule's")
+        return self.stem(x.permute(0, 3, 1, 2).to(dtype))
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> dict:
-        x = self.stem(x, dtype)
+        if self.stem_schedule == "dense4":
+            x = self.stem(x, dtype)
+        else:
+            x = self.ds2(self.ds1(self.stem_output(x, dtype)))
         for name in ("ds3", "ds4", "ds5"):
             x = getattr(self, name)(x)
         c3 = x

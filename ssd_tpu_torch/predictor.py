@@ -5,9 +5,9 @@
          labels (N, max_boxes), num_boxes (N,)}
 
 Host-side resize to the model resolution (bilinear, uint8 in and out),
-power-of-two batch buckets, and for dense4 configs the packed s8 feed:
-the host packs the batch space-to-depth(4) and the stem consumes it as is
-(the port builds the dense4 stem only, so this is its one feed).
+power-of-two batch buckets, and the feed: for dense4 configs the packed s8
+feed (the host packs the batch space-to-depth(4) and the stem consumes it
+as is), otherwise the raw uint8 batch, normalized on the card.
 Boxes are normalized ``(ymin, xmin, ymax, xmax)``; with ``preserve_aspect``
 they are mapped back from the letterbox canvas to the original frame.
 """
@@ -53,15 +53,24 @@ class Predictor:
     weights seeded from 0).
 
     ``device=None`` runs on the card (and raises without one);
-    ``device="cpu"`` runs the plain versions.
+    ``device="cpu"`` runs the plain versions. ``packed_ingest=None`` packs
+    the feed for dense4 configs and feeds raw uint8 otherwise; ``False``
+    forces the raw feed.
     """
 
     def __init__(self, cfg: Config, state: dict | None,
-                 preserve_aspect: bool = False, device=None):
+                 preserve_aspect: bool = False, device=None,
+                 packed_ingest: bool | None = None):
         self.cfg = cfg
         self.detector = Detector(cfg, state, device=device)
         self.device = self.detector.device
         self.preserve_aspect = preserve_aspect
+        dense4 = cfg.model.stem_schedule == "dense4"
+        if packed_ingest is None:
+            packed_ingest = dense4
+        elif packed_ingest and not dense4:
+            raise ValueError("the packed feed is the dense4 stem's")
+        self._packed = bool(packed_ingest)
 
     @classmethod
     def from_npz(cls, path: str, **kwargs) -> "Predictor":
@@ -79,8 +88,8 @@ class Predictor:
     def predict(self, images) -> dict:
         """``images``: uint8 ``(H, W, 3)`` or ``(N, H, W, 3)``, or a list of
         ``(H, W, 3)`` arrays of any sizes (each is resized, or letterboxed,
-        to the model resolution; the set runs as one batch), or a list of
-        packed ``(H/4, W/4, 48)`` s8 arrays."""
+        to the model resolution; the set runs as one batch), or, with the
+        packed feed, a list of packed ``(H/4, W/4, 48)`` s8 arrays."""
         return self.predict_collect(self.predict_dispatch(images))
 
     def _launch(self, feed: np.ndarray, n: int) -> dict:
@@ -103,7 +112,7 @@ class Predictor:
         hw = self.cfg.image_hw()
 
         # Pre-packed fast path: an upstream tier already packed the images.
-        if image_list and all(
+        if self._packed and image_list and all(
                 im.ndim == 3 and im.dtype == np.int8
                 and im.shape == packed_shape(hw) for im in image_list):
             out = self._launch(np.stack(image_list), len(image_list))
@@ -124,7 +133,7 @@ class Predictor:
                 for im in image_list
             ])
         batch = batch.astype(np.uint8)
-        out = self._launch(pack_s2d(batch), batch.shape[0])
+        out = self._launch(self._feed(batch), batch.shape[0])
         return {"out": out, "n": batch.shape[0], "valid_frac": valid_frac,
                 "single": single}
 
@@ -150,10 +159,21 @@ class Predictor:
             result = {k: v[0] for k, v in result.items()}
         return result
 
+    def _feed_shape(self, n: int) -> tuple:
+        """The device feed's shape for a batch of ``n``: packed or raw."""
+        if self._packed:
+            return packed_shape(self.cfg.image_hw(), n)
+        return (n, *self.cfg.image_hw(), 3)
+
+    def _feed(self, images: np.ndarray) -> np.ndarray:
+        """Host-side ingest: a raw uint8 batch -> the device feed."""
+        return pack_s2d(images) if self._packed else images
+
     def warmup(self, batch_size: int = 1) -> None:
         """Run one zero batch of this size's bucket (first-call set-up:
         cuDNN algorithm choice, the kernel build and load)."""
-        shape = packed_shape(self.cfg.image_hw(), self._bucket_for(batch_size))
-        self.detector.predict(np.zeros(shape, np.int8))
+        shape = self._feed_shape(self._bucket_for(batch_size))
+        dtype = np.int8 if self._packed else np.uint8
+        self.detector.predict(np.zeros(shape, dtype))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -53,6 +53,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         Detector(cfg)
     Predictor(cfg, None, device="cpu")  # the explicit CPU path builds
+    reference = Config.load(os.path.join(ROOT, "configs",
+                                         "coco_mobilenet_640.json"))
+    assert reference.model.stem_schedule == "reference"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(reference, None)
+    from ssd_tpu_torch.tools import bench_fused_early
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_fused_early.reference_backbone()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_fused_early.main(["--batch", "1", "--size", "16"])
 
 
 def test_cpu_tensors_never_launch_the_kernel():
@@ -94,3 +104,21 @@ def test_cpu_matching_never_loads_the_kernel():
         matching_cuda.match_core_cuda(torch.from_numpy(anchors),
                                       torch.from_numpy(gt),
                                       torch.tensor([1], dtype=torch.int32))
+
+
+def test_cpu_fused_early_never_loads_the_kernel():
+    """``fused_ds1_ds2`` on CPU tensors takes the plain version: no launch,
+    and ``fused_early.cu`` is never built or loaded."""
+    from ssd_tpu_torch import _build
+    from ssd_tpu_torch.ops import fused_early, fused_early_cuda
+    from ssd_tpu_torch.tools import bench_fused_early
+    backbone = bench_fused_early.reference_backbone(0.25, device="cpu")
+    folded = fused_early.fold_early_params(backbone)
+    x = bench_fused_early.make_input(1, 8, 8, device="cpu")
+    fused_early_cuda.launches = 0
+    out = fused_early_cuda.fused_ds1_ds2(x, folded)
+    assert tuple(out.shape) == (1, 32, 4, 4)
+    assert fused_early_cuda.launches == 0
+    assert fused_early_cuda._lib is None and "fused_early" not in _build._libs
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_early_cuda.fused_ds1_ds2_cuda(x, folded)
