@@ -10,9 +10,12 @@ any failure raises:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel under ``ssd_tpu_torch/csrc`` built with nvcc;
 3. nms: the suppression kernel against its plain PyTorch version on the
-   card, at the serving shape (N=32, Q=1024, C=80, K=128, every problem
-   live) and at the edge cases (K=100, K=512, all empty, an adversarial
-   chain), with its time, the plain version's and the card's bound;
+   card, on every case of ``ssd_tpu_torch/tools/kernel_cases.py``: the
+   serving shape (N=32, Q=1024, C=80, K=128, every problem live) and the
+   edge cases (K = 1, 32, 33, 100, 512 and the largest K the card admits,
+   all empty, an adversarial chain, identical boxes, an IoU exactly at the
+   threshold, thresholds of 0, -0.5 and 1), with its time, the plain
+   version's and the card's bound;
 4. sanity: the trained sanity artifact (``ssd_tpu_torch/assets``) served by
    ``Predictor.from_npz``; f32 detections set-equal to the stored JAX ones,
    bf16 detections' share of the JAX bf16 ones;
@@ -39,11 +42,14 @@ any failure raises:
    first and last rows and columns on their own; with its time, the plain
    version's, the modules' and the card's bound;
 6. match: the anchor-matching kernel against its plain PyTorch version on
-   the card, at the flagship training shape (N=64, A=76 725, M=100, crowded
-   640 px scenes of 80 classes) and at the edge cases (images without gts,
-   duplicate gts, gts that overlap no anchor, M=1, M=13, no force-match):
-   all three outputs and the matches equal, with its time, the plain
-   version's and the card's bound;
+   the card, on every case of ``ssd_tpu_torch/tools/kernel_cases.py``: the
+   flagship training shape (N=64, A=76 725, M=100, crowded 640 px scenes
+   of 80 classes) and the edge cases (images without gts, duplicate gts,
+   gts that overlap no anchor, M=1, M=13, no force-match, an anchor
+   repeated across blocks, gts on a run of anchors' bound, gts partly
+   outside [0, 1]): all three outputs and the matches equal, with its
+   time, the share of pairs its cull skips, the plain version's time and
+   the card's bound;
 7. train_sanity: ten f32 steps of the sanity task from JAX's seed-0 state
    (``ssd_tpu_torch/assets/train_ref_v1.npz``) against JAX's per-step
    metrics: num_positives equal at every step, step 0's loss within 1e-4
@@ -57,7 +63,10 @@ any failure raises:
 9. the kernels line, then the card's ``nvidia-smi`` line, then the result.
 
 Times are CUDA-event times after warm-up, or host times around work that
-ends in a synchronise; they are from an unoptimised eager bring-up.
+ends in a synchronise; they are from an unoptimised eager bring-up. K1's
+and K2's ``ms`` is device time by CUDA-graph replay, and ``call_ms`` the
+time of back-to-back eager calls of the wrapper, its host work included
+(``ssd_tpu_torch/tools/bench_kernels.py``).
 """
 
 from __future__ import annotations
@@ -86,8 +95,9 @@ from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.postprocess import select_candidates_cells
 from ssd_tpu_torch.ops.targets import create_targets
 from ssd_tpu_torch.predictor import Predictor
-from ssd_tpu_torch.tools import bench_fused_early
+from ssd_tpu_torch.tools import bench_fused_early, kernel_cases
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms
+from ssd_tpu_torch.tools.bench_kernels import kernel_ms
 from ssd_tpu_torch.train import EXPORT_NAME, train
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
                                       make_train_step)
@@ -129,31 +139,6 @@ def nvidia_smi_line() -> str:
 
 # ------------------------------------------------------------------ NMS
 
-def clustered_problem(rng, n: int, q: int, c: int, cluster: int = 16):
-    """Boxes in dense overlapping clusters of ``cluster`` and tie-free
-    scores: ``boxes (n, q, 4)``, ``scores (n, q, c)``, f32 numpy."""
-    k = q // cluster
-    centre = rng.uniform(0.1, 0.9, (n, k, 1, 2))
-    size = rng.uniform(0.05, 0.3, (n, k, 1, 2))
-    centre = centre + rng.normal(0.0, 0.02, (n, k, cluster, 2))
-    size = size * rng.uniform(0.8, 1.2, (n, k, cluster, 2))
-    boxes = np.concatenate([centre - size / 2, centre + size / 2], -1)
-    boxes = np.clip(boxes, 0.0, 1.0).reshape(n, q, 4).astype(np.float32)
-    scores = rng.permutation(n * q * c).astype(np.float32) / (n * q * c)
-    return boxes, scores.reshape(n, q, c)
-
-
-def chain_problem(n: int, q: int, c: int):
-    """Boxes in a chain, each overlapping the next at IoU 0.25 and not the
-    one after; scores fall along it."""
-    x0 = 0.06 * np.arange(q) / (0.06 * q + 0.1)
-    w = 0.1 / (0.06 * q + 0.1)
-    one = np.stack([np.zeros(q), x0, np.full(q, 0.2), x0 + w], -1)
-    boxes = np.broadcast_to(one, (n, q, 4)).astype(np.float32)
-    s = np.linspace(0.9, 0.5, q)[None, :, None] - 1e-3 * np.arange(c)
-    return boxes.copy(), np.broadcast_to(s, (n, q, c)).astype(np.float32)
-
-
 def greedy_ious(top_boxes: torch.Tensor, valid: torch.Tensor,
                 thr: float) -> int:
     """IoUs greedy NMS needs on these inputs: for each pivot still kept at
@@ -171,12 +156,13 @@ def greedy_ious(top_boxes: torch.Tensor, valid: torch.Tensor,
     return int(count)
 
 
-def check_nms_case(name: str, boxes_np, scores_np, cfg: NMSConfig,
+def check_nms_case(case: kernel_cases.NMSCase, name: str,
                    timed: bool = False) -> dict:
     """Kernel vs plain on the card: kept masks equal, kept scores within
-    1e-6, and whole-path detections equal."""
-    boxes = torch.from_numpy(boxes_np).to(DEVICE)
-    scores = torch.from_numpy(scores_np).to(DEVICE)
+    1e-6, whole-path detections equal, and the kept count the case fixes."""
+    cfg = NMSConfig(**case.cfg)
+    boxes = torch.from_numpy(case.boxes).to(DEVICE)
+    scores = torch.from_numpy(case.scores).to(DEVICE)
     top_scores, top_idx = nms.class_topk(scores, cfg)
     got = nms_cuda.suppress_cuda(boxes, top_idx, top_scores,
                                  cfg.iou_threshold)
@@ -202,6 +188,9 @@ def check_nms_case(name: str, boxes_np, scores_np, cfg: NMSConfig,
            "C": c, "K": k, "G": g, "live_problems": live,
            "kept": int((got > 0).sum()), "max_abs_err": err,
            "num_boxes_equal": True}
+    if case.kept is not None and row["kept"] != case.kept:
+        raise AssertionError(f"nms {name}: kept {row['kept']}, want "
+                             f"{case.kept}")
     if timed:
         flat = top_idx.reshape(n, c * k).long()
         top_boxes = torch.gather(
@@ -210,9 +199,9 @@ def check_nms_case(name: str, boxes_np, scores_np, cfg: NMSConfig,
         nbytes = boxes.numel() * 4 + top_idx.numel() * 4 + 2 * got.numel() * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ious * IOU_FLOPS / F32_FLOP_PER_S * 1e3
+        row.update(kernel_ms(lambda: nms_cuda.suppress_cuda(
+            boxes, top_idx, top_scores, cfg.iou_threshold)))
         row.update({
-            "ms": cuda_ms(lambda: nms_cuda.suppress_cuda(
-                boxes, top_idx, top_scores, cfg.iou_threshold), iters=200),
             "plain_ms": cuda_ms(lambda: nms.suppress(
                 boxes, top_idx, top_scores, cfg.iou_threshold), iters=5),
             "bytes": nbytes, "ious": ious,
@@ -227,25 +216,17 @@ def check_nms_case(name: str, boxes_np, scores_np, cfg: NMSConfig,
 
 
 def phase_nms() -> dict:
-    rng = np.random.default_rng(0)
-    serve = NMSConfig()  # flagship: K=128, iou 0.5, score 0.05
-    boxes, scores = clustered_problem(rng, 32, 1024, 80)
-    main = check_nms_case("serve_b32", boxes, scores, serve, timed=True)
-    if main["live_problems"] != main["G"]:
-        raise AssertionError("serving-shape case must have every problem live")
-    check_nms_case("k100", boxes, scores,
-                   dataclasses.replace(serve, pre_nms_top_k=100))
-    b8, s8 = clustered_problem(rng, 8, 1024, 80)
-    check_nms_case("k512", b8, s8,
-                   dataclasses.replace(serve, pre_nms_top_k=512))
-    empty = check_nms_case("all_empty", boxes, scores * 0.04, serve)
-    if empty["kept"] or empty["live_problems"]:
-        raise AssertionError("all-empty case kept a candidate")
-    cb, cs = chain_problem(2, 128, 4)
-    chain = check_nms_case("chain", cb, cs, dataclasses.replace(
-        serve, iou_threshold=0.2, score_threshold=0.1))
-    if chain["kept"] != 2 * 4 * 64:
-        raise AssertionError(f"chain kept {chain['kept']}, want every other")
+    """Every NMS case; the serving one (``serve_b32``) timed and returned."""
+    main = None
+    for case in kernel_cases.nms_cases(32, 1024, 80,
+                                       max_k=nms_cuda._max_k(DEVICE)):
+        if case.name == "serve":
+            main = check_nms_case(case, "serve_b32", timed=True)
+            if main["live_problems"] != main["G"]:
+                raise AssertionError(
+                    "serving-shape case must have every problem live")
+        else:
+            check_nms_case(case, case.name)
     return main
 
 
@@ -609,14 +590,36 @@ def _plain_core(anchors, gt, num, chunk: int = 16):
     return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
 
 
-def check_match_case(name: str, anchors, gt, num,
-                     cfg: MatcherConfig = MatcherConfig(),
-                     timed: bool = False) -> dict:
+def cull_pairs(anchors: torch.Tensor, gt: torch.Tensor,
+               nb: torch.Tensor) -> int:
+    """(valid gt, anchor) pairs the matching kernel computes after its
+    cull: each run of ``matching_cuda.ANCHORS_PER_WARP`` consecutive anchors
+    (one warp's) is bounded by one box, and a gt is listed for the run only
+    where it overlaps that box on both axes (``csrc/match.cu``)."""
+    a, w = anchors.shape[0], matching_cuda.ANCHORS_PER_WARP
+    pad = -a % w  # repeats of the last anchor leave the last run's bound
+    runs = torch.cat([anchors, anchors[-1:].expand(pad, 4)]).reshape(-1, w, 4)
+    lo, hi = runs[..., :2].amin(1), runs[..., 2:].amax(1)  # (R, 2) each
+    size = torch.full((runs.shape[0],), w, device=anchors.device)
+    size[-1] = w - pad
+    g = gt[..., None, :]  # (N, M, 1, 4)
+    hit = ((torch.minimum(hi[:, 0], g[..., 2])
+            > torch.maximum(lo[:, 0], g[..., 0]))
+           & (torch.minimum(hi[:, 1], g[..., 3])
+              > torch.maximum(lo[:, 1], g[..., 1])))  # (N, M, R)
+    valid = (torch.arange(gt.shape[1], device=gt.device)[None, :]
+             < nb[:, None])
+    return int(((hit & valid[..., None]) * size).sum())
+
+
+def check_match_case(case: kernel_cases.MatchCase, name: str,
+                     cfg: MatcherConfig, timed: bool = False) -> dict:
     """Kernel vs plain on the card: best_gt, best_iou, best_anchor and the
     matches equal."""
-    anchors = torch.as_tensor(anchors).to(DEVICE)
-    gt = torch.as_tensor(gt).to(DEVICE)
-    num = torch.as_tensor(num).to(DEVICE, torch.int32)
+    cfg = dataclasses.replace(cfg, force_match_for_each_gt=case.force_match)
+    anchors = torch.from_numpy(case.anchors).to(DEVICE)
+    gt = torch.from_numpy(case.gt).to(DEVICE)
+    num = torch.from_numpy(case.num).to(DEVICE, torch.int32)
     got = matching_cuda.match_core_cuda(anchors, gt, num)
     want = _plain_core(anchors, gt, num)
     torch.cuda.synchronize()
@@ -642,16 +645,19 @@ def check_match_case(name: str, anchors, gt, num,
         nbytes = (a * 16 + n * m * 16 + n * 4  # anchors, gts, num_boxes
                   + n * a * 8 + n * m * 4)  # best_gt + best_iou, best_anchor
         ious = int(nb.sum()) * a
+        listed = cull_pairs(anchors, gt, nb)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ious * MATCH_FLOPS / F32_FLOP_PER_S * 1e3
+        row.update(kernel_ms(lambda: matching_cuda.match_core_cuda(
+            anchors, gt, num)))
         row.update({
-            "ms": cuda_ms(lambda: matching_cuda.match_core_cuda(
-                anchors, gt, num), iters=50),
             "plain_ms": cuda_ms(lambda: matching.match_core(anchors, gt, num),
                                 iters=3, warmup=1),
-            "bytes": nbytes, "ious": ious,
+            "bytes": nbytes, "ious": ious, "pairs_after_cull": listed,
+            "cull_share": 1.0 - listed / max(ious, 1),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
             "library_ms": None,
             "library_note": "no single PyTorch call computes both argmaxes "
                             "from one IoU pass"})
@@ -659,37 +665,20 @@ def check_match_case(name: str, anchors, gt, num,
     return row
 
 
-def _random_boxes(rng, shape, lo=0.1, hi=0.9):
-    c = rng.uniform(lo, hi, shape + (2,))
-    size = rng.uniform(0.02, 0.3, shape + (2,))
-    return np.concatenate([c - size / 2, c + size / 2], -1).astype(
-        np.float32).clip(0, 1)
-
-
 def phase_match() -> dict:
+    """Every matching case; the flagship batch (``flagship_b64``) timed and
+    returned."""
     cfg = Config.load(FLAGSHIP)
     anchors = generate_anchors(cfg.image_size, cfg.anchors)
     b = synthetic.crowded_batch(0, CROWDED_SEED, cfg.train.batch_size,
                                 cfg.image_hw()[0], cfg.num_classes, MATCH_M)
-    main = check_match_case("flagship_b64", anchors, b["boxes"],
-                            b["num_boxes"], cfg.matcher, timed=True)
-    rng = np.random.default_rng(2)
-    gt = _random_boxes(rng, (8, 100))
-    num = rng.integers(0, 101, 8).astype(np.int32)
-    num[:3] = 0
-    check_match_case("no_gts", anchors, gt, num)
-    dup = b["boxes"][:8].copy()
-    dup[:, 1::2] = dup[:, 0:-1:2]  # every odd gt repeats the even one before
-    check_match_case("duplicates", anchors, dup, b["num_boxes"][:8])
-    far = gt.copy()
-    far[:, :10] = [0.5, 0.5, 0.5, 0.6]  # zero height: IoU 0 with every anchor
-    check_match_case("no_overlap", anchors, far, np.full(8, 100, np.int32))
-    check_match_case("m1", anchors, gt[:, :1], np.ones(8, np.int32))
-    check_match_case("m13", anchors, gt[:, :13], np.minimum(num, 13))
-    check_match_case("no_force_match", anchors, b["boxes"][:8],
-                     b["num_boxes"][:8],
-                     dataclasses.replace(cfg.matcher,
-                                         force_match_for_each_gt=False))
+    main = None
+    for case in kernel_cases.match_cases(anchors, b["boxes"], b["num_boxes"]):
+        if case.name == "crowded":
+            main = check_match_case(case, "flagship_b64", cfg.matcher,
+                                    timed=True)
+        else:
+            check_match_case(case, case.name, cfg.matcher)
     return main
 
 
@@ -897,10 +886,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
+    ptxas = {k: _build.ptxas_report(v) for k, v in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "sources": _build.sources(),
-          "ptxas": {k: [ln for ln in v.splitlines() if "ptxas info" in ln]
-                    for k, v in _build.build_logs.items()}})
+          "ptxas": ptxas})
 
     main_nms = phase_nms()
     phase_sanity()
@@ -918,16 +907,21 @@ def main() -> int:
         "replaces": "ssd_tpu/ops/nms_pallas.py:78",
         "launches": nms_launches + nms_launches_reference,
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
+        "timing": main_nms["timing"], "call_ms": main_nms["call_ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
-        "bound_by": main_nms["bound_by"], "library_ms": None}, {
+        "bound_by": main_nms["bound_by"], "library_ms": None,
+        "ptxas": ptxas.get("nms")}, {
         "name": "match", "route": "cuda",
         "source": "ssd_tpu_torch/csrc/match.cu",
         "replaces": "ssd_tpu/ops/matching_pallas.py:60",
         "launches": match_launches,
         "max_abs_err": main_match["max_abs_err"], "ms": main_match["ms"],
+        "timing": main_match["timing"], "call_ms": main_match["call_ms"],
         "plain_ms": main_match["plain_ms"],
         "bound_ms": main_match["bound_ms"],
-        "bound_by": main_match["bound_by"], "library_ms": None}, {
+        "bound_by": main_match["bound_by"], "library_ms": None,
+        "cull_share": main_match["cull_share"],
+        "ptxas": ptxas.get("match")}, {
         "name": "fused_early", "route": "cuda",
         "source": "ssd_tpu_torch/csrc/fused_early.cu",
         "replaces": "ssd_tpu/ops/fused_early.py:187",

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into ``_kernels/<name>-<hash>.so`` beside this file (the
 directory is listed in ``.gitignore``) and loaded with ``ctypes``. The hash
 covers the source and the flags, so a changed source is rebuilt and an
-unchanged one is reused. ``build_all`` starts one ``nvcc`` per source, all
-at once, and waits for them together.
+unchanged one is reused; a source of the same name from another
+directory (``csrc_dir``) builds beside it without collision. ``build_all``
+starts one ``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: this module imports on a machine without
 ``nvcc`` or a GPU, and fails only when a kernel is asked for.
@@ -17,6 +18,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,7 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) per freshly built source
+_smem_limits: dict[int, int] = {}
+# nvcc's output (with ptxas's report) per freshly built source: keyed by
+# name for csrc/, by source path for another directory
 build_logs: dict[str, str] = {}
 
 
@@ -50,16 +54,17 @@ def nvcc_path() -> str:
         "ssd_tpu_torch are built from csrc/ on the machine with the card")
 
 
-def _source(name: str) -> str:
-    path = os.path.join(CSRC_DIR, f"{name}.cu")
+def _source(name: str, csrc_dir: str = CSRC_DIR) -> str:
+    path = os.path.join(csrc_dir, f"{name}.cu")
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     return path
 
 
-def _target(name: str) -> str:
+def target(name: str, csrc_dir: str = CSRC_DIR) -> str:
+    """Path of the library built from ``<csrc_dir>/<name>.cu``."""
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
+    with open(_source(name, csrc_dir), "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -71,32 +76,35 @@ def sources() -> list[str]:
                   for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def build_all(names: list[str] | None = None) -> list[str]:
+def build_all(names: list[str] | None = None,
+              csrc_dir: str = CSRC_DIR) -> list[str]:
     """Compile every missing library in parallel; returns the names built.
 
     Each library is written to a temporary file and renamed into place, so
     a concurrent builder never sees a partial one.
     """
     names = sources() if names is None else names
-    todo = [(n, _target(n)) for n in names if not os.path.exists(_target(n))]
+    todo = [(n, target(n, csrc_dir)) for n in names
+            if not os.path.exists(target(n, csrc_dir))]
     if not todo:
         return []
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = []
-    for name, target in todo:
+    for name, out in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source(name)]
-        procs.append((name, target, tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source(name, csrc_dir)]
+        procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for name, target, tmp, proc in procs:
+    for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        build_logs[name] = log
+        build_logs[name if csrc_dir == CSRC_DIR
+                   else _source(name, csrc_dir)] = log
         if proc.returncode == 0:
-            os.replace(tmp, target)
+            os.replace(tmp, out)
         else:
             os.unlink(tmp)
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
@@ -110,5 +118,61 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build_all([name])
-            _libs[name] = ctypes.CDLL(_target(name))
+            _libs[name] = ctypes.CDLL(target(name))
         return _libs[name]
+
+
+def smem_limit(name: str, index: int) -> int:
+    """Largest dynamic shared memory one block may use on CUDA device
+    ``index``, in bytes: asked once per device, through ``csrc/<name>.cu``'s
+    ``ssd_<name>_smem_limit``, then cached, so a launch pays no ctypes call
+    for it."""
+    limit = _smem_limits.get(index)
+    if limit is None:
+        fn = getattr(load(name), f"ssd_{name}_smem_limit")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        rc = fn(index, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"ssd_{name}_smem_limit failed: CUDA error {rc}")
+        limit = _smem_limits[index] = out.value
+    return limit
+
+
+def _kernel_name(symbol: str) -> str:
+    """``nms_kernel`` from its mangled symbol, where the name sits as
+    ``<length><name>``; the symbol itself if no ``*_kernel`` is found."""
+    for i in range(len(symbol)):  # a length may follow other digits
+        m = re.match(r"\d+", symbol[i:])
+        if m:
+            name = symbol[i + m.end():i + m.end() + int(m.group())]
+            if name.endswith("_kernel") and name.isidentifier():
+                return name
+    return symbol
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel in an nvcc log (``-Xptxas -v``): registers, stack frame,
+    spill stores and loads, and static shared memory in bytes. Kernels are
+    keyed by their name (``nms_kernel``), not the mangled symbol."""
+    out: dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(s.group(1)) if s else 0
+    return out

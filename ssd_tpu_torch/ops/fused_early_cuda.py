@@ -37,9 +37,6 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("fused_early")
         lib.ssd_fused_early_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ssd_fused_early_smem_bytes.restype = ctypes.c_long
-        lib.ssd_fused_early_smem_limit.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.ssd_fused_early_smem_limit.restype = ctypes.c_int
         lib.ssd_fused_early.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ssd_fused_early.restype = ctypes.c_int
@@ -93,13 +90,10 @@ def fused_ds1_ds2_cuda(x: torch.Tensor, folded: dict) -> torch.Tensor:
         raise ValueError(f"N={n} images must be at most 65535")
     lib = _library()
     need = lib.ssd_fused_early_smem_bytes(c1, c2)
-    limit = ctypes.c_int(0)
-    rc = lib.ssd_fused_early_smem_limit(_index(dev), ctypes.byref(limit))
-    if rc != 0:
-        raise RuntimeError(f"ssd_fused_early_smem_limit failed: CUDA error {rc}")
-    if need > limit.value:
+    limit = _build.smem_limit("fused_early", _index(dev))
+    if need > limit:
         raise ValueError(f"C1={c1}, C2={c2} need {need} bytes of shared "
-                         f"memory a block; this card allows {limit.value}")
+                         f"memory a block; this card allows {limit}")
     out = torch.empty((n, c3, h // 2, w // 2), dtype=torch.bfloat16,
                       device=dev, memory_format=torch.channels_last)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -2,9 +2,10 @@
 
 Counterpart of ``ssd_tpu/ops/matching_pallas.py::match_anchors_pallas``.
 ``csrc/match.cu`` computes the per-anchor best gt and IoU and the per-gt
-best anchor in one pass over each image's IoUs, one thread per (image,
-anchor); thresholds and the forced match stay plain PyTorch
-(``ops.matching.finish_matches``), shared with the plain version.
+best anchor in one pass over each image's IoUs, four anchors a thread,
+each warp skipping the gts that overlap none of its anchors; thresholds and
+the forced match stay plain PyTorch (``ops.matching.finish_matches``),
+shared with the plain version.
 
 Dispatch follows the tensors' device. CUDA tensors launch the kernel, or
 raise: there is no fallback. CPU tensors take the plain version,
@@ -29,24 +30,30 @@ from ssd_tpu_torch.ops import matching
 
 launches = 0
 
-# per gt: its box (float4), its block-wide key (uint64) and its area (f32)
-_SMEM_BYTES_PER_GT = 28
+# per gt: its box (float4), its block key (uint64), its area (f32) and one
+# list slot (uint16) for each of the block's 8 warps
+_SMEM_BYTES_PER_GT = 44
+# consecutive anchors a warp takes, and bounds with one box for its cull
+ANCHORS_PER_WARP = 128
+# a key's starting value, "IoU +0 at anchor 0" (csrc/match.cu)
+_ZERO_IOU_KEY = 0xFFFFFFFF
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from a ``match.cu``."""
+    lib.ssd_match.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.ssd_match.restype = ctypes.c_int
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load("match")
-        lib.ssd_match_smem_limit.argtypes = [ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_int)]
-        lib.ssd_match_smem_limit.restype = ctypes.c_int
-        lib.ssd_match.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        lib.ssd_match.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(_build.load("match"))
     return _lib
 
 
@@ -56,11 +63,7 @@ def _index(device: torch.device) -> int:
 
 def _max_gts(device: torch.device) -> int:
     """Largest M whose gts fit in one block's shared memory."""
-    limit = ctypes.c_int(0)
-    rc = _library().ssd_match_smem_limit(_index(device), ctypes.byref(limit))
-    if rc != 0:
-        raise RuntimeError(f"ssd_match_smem_limit failed: CUDA error {rc}")
-    return limit.value // _SMEM_BYTES_PER_GT
+    return _build.smem_limit("match", _index(device)) // _SMEM_BYTES_PER_GT
 
 
 def match_core_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
@@ -103,7 +106,7 @@ def match_core_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     best_gt = torch.empty((n, a), dtype=torch.int32, device=dev)
     best_iou = torch.empty((n, a), dtype=torch.float32, device=dev)
     best_anchor = torch.empty((n, m), dtype=torch.int32, device=dev)
-    keys = torch.zeros((n, m), dtype=torch.int64, device=dev)
+    keys = torch.full((n, m), _ZERO_IOU_KEY, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().ssd_match(
         ctypes.c_void_p(anchors.data_ptr()),

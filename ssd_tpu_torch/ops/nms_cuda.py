@@ -2,8 +2,9 @@
 
 Counterpart of ``ssd_tpu/ops/nms_pallas.py::batched_nms_pallas``. The
 per-class top-k and the class merge are ordinary PyTorch (``ops/nms.py``);
-the suppression scan runs in ``csrc/nms.cu``: one block per (image, class)
-problem, its K boxes gathered by index into shared memory.
+the suppression scan runs in ``csrc/nms.cu``: one warp per (image, class)
+problem, its K boxes gathered by index into the warp's slice of shared
+memory, its keep flags one 32-bit word per 32 candidates.
 
 Dispatch follows the tensors' device. CUDA tensors launch the kernel, or
 raise: there is no fallback. CPU tensors take the plain version,
@@ -28,23 +29,25 @@ from ssd_tpu_torch.ops.nms import Detections
 
 launches = 0
 
-_SMEM_BYTES_PER_CANDIDATE = 24  # ymin, xmin, ymax, xmax, area, keep
+# per 32 candidates: the boxes (float4) and areas (f32), one keep word
+_SMEM_BYTES_PER_CHUNK = 32 * (16 + 4) + 4
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from an ``nms.cu``."""
+    lib.ssd_nms_suppress.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.ssd_nms_suppress.restype = ctypes.c_int
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load("nms")
-        lib.ssd_nms_smem_limit.argtypes = [ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_int)]
-        lib.ssd_nms_smem_limit.restype = ctypes.c_int
-        lib.ssd_nms_suppress.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.ssd_nms_suppress.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(_build.load("nms"))
     return _lib
 
 
@@ -65,13 +68,20 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _smem_bytes(k: int) -> int:
+    """One problem's slice of shared memory: K rounded up to 32."""
+    return -(-k // 32) * _SMEM_BYTES_PER_CHUNK
+
+
+def max_k_for(smem_bytes: int) -> int:
+    """Largest K whose candidates fit one warp's slice in ``smem_bytes`` of
+    shared memory (the kernel then runs one problem a block)."""
+    return 32 * (smem_bytes // _SMEM_BYTES_PER_CHUNK)
+
+
 def _max_k(device: torch.device) -> int:
-    """Largest K whose candidates fit in one block's shared memory."""
-    limit = ctypes.c_int(0)
-    rc = _library().ssd_nms_smem_limit(_index(device), ctypes.byref(limit))
-    if rc != 0:
-        raise RuntimeError(f"ssd_nms_smem_limit failed: CUDA error {rc}")
-    return limit.value // _SMEM_BYTES_PER_CANDIDATE
+    """Largest K the kernel takes on ``device``."""
+    return max_k_for(_build.smem_limit("nms", _index(device)))
 
 
 def suppress_cuda(boxes: torch.Tensor, top_idx: torch.Tensor,
@@ -99,9 +109,10 @@ def suppress_cuda(boxes: torch.Tensor, top_idx: torch.Tensor,
     limit = _max_k(dev)
     if k > limit:
         raise ValueError(
-            f"K={k} candidates per problem need {k * _SMEM_BYTES_PER_CANDIDATE}"
-            f" bytes of shared memory; this card allows {limit} candidates "
-            f"({limit * _SMEM_BYTES_PER_CANDIDATE} bytes) per block")
+            f"K={k} candidates per problem need {_smem_bytes(k)} bytes of "
+            f"shared memory ({_SMEM_BYTES_PER_CHUNK} per 32 candidates); "
+            f"this card allows {limit} candidates ({_smem_bytes(limit)} "
+            f"bytes) per block")
     out = torch.empty_like(top_scores)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _library().ssd_nms_suppress(
