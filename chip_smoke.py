@@ -48,8 +48,8 @@ any failure raises:
    gts that overlap no anchor, M=1, M=13, no force-match, an anchor
    repeated across blocks, gts on a run of anchors' bound, gts partly
    outside [0, 1]): all three outputs and the matches equal, with its
-   time, the share of pairs its cull skips, the plain version's time and
-   the card's bound;
+   time, the share of pairs its cull skips (counted by the kernel), the
+   plain version's time and the card's bound;
 7. train_sanity: ten f32 steps of the sanity task from JAX's seed-0 state
    (``ssd_tpu_torch/assets/train_ref_v1.npz``) against JAX's per-step
    metrics: num_positives equal at every step, step 0's loss within 1e-4
@@ -590,28 +590,6 @@ def _plain_core(anchors, gt, num, chunk: int = 16):
     return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
 
 
-def cull_pairs(anchors: torch.Tensor, gt: torch.Tensor,
-               nb: torch.Tensor) -> int:
-    """(valid gt, anchor) pairs the matching kernel computes after its
-    cull: each run of ``matching_cuda.ANCHORS_PER_WARP`` consecutive anchors
-    (one warp's) is bounded by one box, and a gt is listed for the run only
-    where it overlaps that box on both axes (``csrc/match.cu``)."""
-    a, w = anchors.shape[0], matching_cuda.ANCHORS_PER_WARP
-    pad = -a % w  # repeats of the last anchor leave the last run's bound
-    runs = torch.cat([anchors, anchors[-1:].expand(pad, 4)]).reshape(-1, w, 4)
-    lo, hi = runs[..., :2].amin(1), runs[..., 2:].amax(1)  # (R, 2) each
-    size = torch.full((runs.shape[0],), w, device=anchors.device)
-    size[-1] = w - pad
-    g = gt[..., None, :]  # (N, M, 1, 4)
-    hit = ((torch.minimum(hi[:, 0], g[..., 2])
-            > torch.maximum(lo[:, 0], g[..., 0]))
-           & (torch.minimum(hi[:, 1], g[..., 3])
-              > torch.maximum(lo[:, 1], g[..., 1])))  # (N, M, R)
-    valid = (torch.arange(gt.shape[1], device=gt.device)[None, :]
-             < nb[:, None])
-    return int(((hit & valid[..., None]) * size).sum())
-
-
 def check_match_case(case: kernel_cases.MatchCase, name: str,
                      cfg: MatcherConfig, timed: bool = False) -> dict:
     """Kernel vs plain on the card: best_gt, best_iou, best_anchor and the
@@ -645,7 +623,7 @@ def check_match_case(case: kernel_cases.MatchCase, name: str,
         nbytes = (a * 16 + n * m * 16 + n * 4  # anchors, gts, num_boxes
                   + n * a * 8 + n * m * 4)  # best_gt + best_iou, best_anchor
         ious = int(nb.sum()) * a
-        listed = cull_pairs(anchors, gt, nb)
+        listed = matching_cuda.listed_pairs(anchors, gt, num)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ious * MATCH_FLOPS / F32_FLOP_PER_S * 1e3
         row.update(kernel_ms(lambda: matching_cuda.match_core_cuda(
@@ -886,7 +864,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    ptxas = {k: _build.ptxas_report(v) for k, v in _build.build_logs.items()}
+    ptxas = {k: _build.ptxas_lines(v) for k, v in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "sources": _build.sources(),
           "ptxas": ptxas})

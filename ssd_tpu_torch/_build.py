@@ -18,7 +18,6 @@ import ctypes
 import glob
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -37,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_smem_limits: dict[int, int] = {}
+_device_values: dict[tuple[str, str, int], int] = {}
 # nvcc's output (with ptxas's report) per freshly built source: keyed by
 # name for csrc/, by source path for another directory
 build_logs: dict[str, str] = {}
@@ -122,57 +121,26 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def smem_limit(name: str, index: int) -> int:
-    """Largest dynamic shared memory one block may use on CUDA device
-    ``index``, in bytes: asked once per device, through ``csrc/<name>.cu``'s
-    ``ssd_<name>_smem_limit``, then cached, so a launch pays no ctypes call
-    for it."""
-    limit = _smem_limits.get(index)
-    if limit is None:
-        fn = getattr(load(name), f"ssd_{name}_smem_limit")
+def device_query(name: str, query: str, index: int) -> int:
+    """``csrc/<name>.cu``'s ``ssd_<name>_<query>(device, &out)`` for CUDA
+    device ``index`` (a limit of the card, such as the largest problem a
+    kernel takes): asked once per device, then cached, so a launch pays no
+    ctypes call for it."""
+    key = (name, query, index)
+    value = _device_values.get(key)
+    if value is None:
+        fn = getattr(load(name), f"ssd_{name}_{query}")
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         out = ctypes.c_int(0)
         rc = fn(index, ctypes.byref(out))
         if rc != 0:
-            raise RuntimeError(f"ssd_{name}_smem_limit failed: CUDA error {rc}")
-        limit = _smem_limits[index] = out.value
-    return limit
+            raise RuntimeError(f"ssd_{name}_{query} failed: CUDA error {rc}")
+        value = _device_values[key] = out.value
+    return value
 
 
-def _kernel_name(symbol: str) -> str:
-    """``nms_kernel`` from its mangled symbol, where the name sits as
-    ``<length><name>``; the symbol itself if no ``*_kernel`` is found."""
-    for i in range(len(symbol)):  # a length may follow other digits
-        m = re.match(r"\d+", symbol[i:])
-        if m:
-            name = symbol[i + m.end():i + m.end() + int(m.group())]
-            if name.endswith("_kernel") and name.isidentifier():
-                return name
-    return symbol
-
-
-def ptxas_report(log: str) -> dict:
-    """Per kernel in an nvcc log (``-Xptxas -v``): registers, stack frame,
-    spill stores and loads, and static shared memory in bytes. Kernels are
-    keyed by their name (``nms_kernel``), not the mangled symbol."""
-    out: dict[str, dict] = {}
-    cur = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            cur = out.setdefault(_kernel_name(m.group(1)), {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                       spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            s = re.search(r"(\d+) bytes smem", line)
-            cur["static_smem"] = int(s.group(1)) if s else 0
-    return out
+def ptxas_lines(log: str) -> list[str]:
+    """The non-empty lines of an nvcc log: with ``-Xptxas -v``, each
+    kernel's registers, shared memory, stack frame and spills."""
+    return [line.strip() for line in log.splitlines() if line.strip()]

@@ -33,8 +33,10 @@
 //   0, and the IoU is +0. The warp's loop runs over its list only.
 //   Anchors are consecutive in (level, row, col, scale x aspect) order, so
 //   128 of them span a strip of a few cells; per warp the cull keeps fewer
-//   pairs than per block of 1024 anchors (`chip_smoke.py`'s match phase
-//   prints the share it removes).
+//   pairs than per block of 1024 anchors. The entry point ssd_match_listed
+//   runs the same kernel and also sums, over warps, the listed gts times
+//   the warp's anchors: the pairs the cull leaves (`chip_smoke.py`'s match
+//   phase prints the share it removes).
 // - Per anchor: best = +0, best_j = 0 when the image has a gt (-1 and 0
 //   when it has none), replaced only by a strictly greater IoU; a culled gt
 //   (IoU +0) can never replace it, so the result is still the first
@@ -87,6 +89,8 @@ __device__ __forceinline__ float iou(float4 an, float an_area, float4 g,
   return __fdiv_rn(inter, fmaxf(uni, 1e-8f));
 }
 
+// kCount: also add the pairs this warp computes to *listed.
+template <bool kCount>
 __global__ void __launch_bounds__(kWarps * 32)
 match_kernel(const float4* __restrict__ anchors,  // (A,)
              const float4* __restrict__ gts,      // (N, M)
@@ -94,7 +98,8 @@ match_kernel(const float4* __restrict__ anchors,  // (A,)
              int a, int m,
              int* __restrict__ best_gt,           // (N, A)
              float* __restrict__ best_iou,        // (N, A)
-             unsigned long long* __restrict__ keys) {  // (N, M)
+             unsigned long long* __restrict__ keys,     // (N, M)
+             unsigned long long* __restrict__ listed) {  // ()
   extern __shared__ float4 smem[];
   float4* g = smem;                                          // (M,)
   unsigned long long* block_key =
@@ -158,6 +163,10 @@ match_kernel(const float4* __restrict__ anchors,  // (A,)
     count += __popc(mask);
   }
   __syncwarp();
+  if (kCount && lane == 0 && count > 0)
+    atomicAdd(listed, static_cast<unsigned long long>(count) *
+                          static_cast<unsigned>(min(max(a - base, 0),
+                                                    kWarpAnchors)));
 
   float best[kPerLane];
   int best_j[kPerLane];
@@ -234,29 +243,15 @@ size_t smem_bytes(int m) {
           kWarps * sizeof(unsigned short));
 }
 
-}  // namespace
-
-extern "C" {
-
-// Largest dynamic shared memory one block may use on `device`, in bytes.
-int ssd_match_smem_limit(int device, int* bytes) {
-  return static_cast<int>(cudaDeviceGetAttribute(
-      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-}
-
-// Launches both kernels on `stream` of `device`. `keys` is (N, M) uint64
-// scratch that the caller has filled with 0x00000000FFFFFFFF. Returns
-// cudaGetLastError() after the launches (0 on success). This library links
-// its own CUDA runtime, whose current device is set here rather than
-// inherited from PyTorch's.
-int ssd_match(const void* anchors, const void* gts, const void* num_boxes,
-              int n, int a, int m, void* best_gt, void* best_iou,
-              void* keys, void* best_anchor, int device, void* stream) {
+template <bool kCount>
+int launch(const void* anchors, const void* gts, const void* num_boxes, int n,
+           int a, int m, void* best_gt, void* best_iou, void* keys,
+           void* best_anchor, void* listed, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(m);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(match_kernel,
+    err = cudaFuncSetAttribute(match_kernel<kCount>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -264,11 +259,12 @@ int ssd_match(const void* anchors, const void* gts, const void* num_boxes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0 && a > 0) {
     const dim3 grid((a + kBlockAnchors - 1) / kBlockAnchors, n);
-    match_kernel<<<grid, kWarps * 32, smem, s>>>(
+    match_kernel<kCount><<<grid, kWarps * 32, smem, s>>>(
         static_cast<const float4*>(anchors), static_cast<const float4*>(gts),
         static_cast<const int*>(num_boxes), a, m, static_cast<int*>(best_gt),
         static_cast<float*>(best_iou),
-        static_cast<unsigned long long*>(keys));
+        static_cast<unsigned long long*>(keys),
+        static_cast<unsigned long long*>(listed));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -280,6 +276,42 @@ int ssd_match(const void* anchors, const void* gts, const void* num_boxes,
                          static_cast<int*>(best_anchor));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest M whose gts fit one block's shared memory on `device`.
+int ssd_match_max_gts(int device, int* m) {
+  int limit = 0;
+  const int rc = static_cast<int>(cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  *m = static_cast<int>(limit / smem_bytes(1));
+  return rc;
+}
+
+// Launches both kernels on `stream` of `device`. `keys` is (N, M) uint64
+// scratch that the caller has filled with 0x00000000FFFFFFFF. Returns
+// cudaGetLastError() after the launches (0 on success). This library links
+// its own CUDA runtime, whose current device is set here rather than
+// inherited from PyTorch's.
+int ssd_match(const void* anchors, const void* gts, const void* num_boxes,
+              int n, int a, int m, void* best_gt, void* best_iou,
+              void* keys, void* best_anchor, int device, void* stream) {
+  return launch<false>(anchors, gts, num_boxes, n, a, m, best_gt, best_iou,
+                       keys, best_anchor, nullptr, device, stream);
+}
+
+// ssd_match, and adds to `listed` (one uint64 on the card) the (gt, anchor)
+// pairs whose IoUs the kernel computes after its cull.
+int ssd_match_listed(const void* anchors, const void* gts,
+                     const void* num_boxes, int n, int a, int m,
+                     void* best_gt, void* best_iou, void* keys,
+                     void* best_anchor, void* listed, int device,
+                     void* stream) {
+  return launch<true>(anchors, gts, num_boxes, n, a, m, best_gt, best_iou,
+                      keys, best_anchor, listed, device, stream);
 }
 
 }  // extern "C"

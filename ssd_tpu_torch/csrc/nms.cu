@@ -67,7 +67,6 @@ namespace {
 constexpr int kMaxWarps = 4;
 // Pivots a round in the tests against later chunks (independent IoUs).
 constexpr int kRound = 4;
-constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 // Shared memory per chunk of 32 candidates: the boxes (float4), the areas
 // (f32) and one keep word.
@@ -289,27 +288,23 @@ size_t slice_bytes(int k) {
   return static_cast<size_t>((k + 31) / 32) * kChunkBytes;
 }
 
-// The device's limit, asked once per device and kept.
+// The largest dynamic shared memory one block may use on `device`.
 int smem_limit(int device, int* bytes) {
-  static int cached[kMaxDevices];
-  if (device >= 0 && device < kMaxDevices && cached[device] > 0) {
-    *bytes = cached[device];
-    return 0;
-  }
-  const int rc = static_cast<int>(cudaDeviceGetAttribute(
+  return static_cast<int>(cudaDeviceGetAttribute(
       bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  if (rc == 0 && device >= 0 && device < kMaxDevices) cached[device] = *bytes;
-  return rc;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest dynamic shared memory one block of the kernel may use on
-// `device`, in bytes.
-int ssd_nms_smem_limit(int device, int* bytes) {
-  return smem_limit(device, bytes);
+// Largest K whose candidates fit one warp's slice of one block's shared
+// memory on `device` (the kernel then runs one problem a block).
+int ssd_nms_max_k(int device, int* k) {
+  int limit = 0;
+  const int rc = smem_limit(device, &limit);
+  *k = 32 * (limit / kChunkBytes);
+  return rc;
 }
 
 // Launches the kernel on `stream` of `device`; returns cudaGetLastError()

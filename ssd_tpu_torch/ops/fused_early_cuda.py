@@ -90,7 +90,7 @@ def fused_ds1_ds2_cuda(x: torch.Tensor, folded: dict) -> torch.Tensor:
         raise ValueError(f"N={n} images must be at most 65535")
     lib = _library()
     need = lib.ssd_fused_early_smem_bytes(c1, c2)
-    limit = _build.smem_limit("fused_early", _index(dev))
+    limit = _build.device_query("fused_early", "smem_limit", _index(dev))
     if need > limit:
         raise ValueError(f"C1={c1}, C2={c2} need {need} bytes of shared "
                          f"memory a block; this card allows {limit}")

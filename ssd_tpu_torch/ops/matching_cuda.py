@@ -30,11 +30,6 @@ from ssd_tpu_torch.ops import matching
 
 launches = 0
 
-# per gt: its box (float4), its block key (uint64), its area (f32) and one
-# list slot (uint16) for each of the block's 8 warps
-_SMEM_BYTES_PER_GT = 44
-# consecutive anchors a warp takes, and bounds with one box for its cull
-ANCHORS_PER_WARP = 128
 # a key's starting value, "IoU +0 at anchor 0" (csrc/match.cu)
 _ZERO_IOU_KEY = 0xFFFFFFFF
 _lib = None
@@ -53,7 +48,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        _lib = bind(_build.load("match"))
+        lib = bind(_build.load("match"))
+        lib.ssd_match_listed.argtypes = (
+            lib.ssd_match.argtypes[:10] + [ctypes.c_void_p]
+            + lib.ssd_match.argtypes[10:])
+        lib.ssd_match_listed.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 
@@ -62,18 +62,17 @@ def _index(device: torch.device) -> int:
 
 
 def _max_gts(device: torch.device) -> int:
-    """Largest M whose gts fit in one block's shared memory."""
-    return _build.smem_limit("match", _index(device)) // _SMEM_BYTES_PER_GT
+    """Largest M whose gts fit one block's shared memory (``csrc/match.cu``
+    lays it out)."""
+    return _build.device_query("match", "max_gts", _index(device))
 
 
-def match_core_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
-                    num_boxes: torch.Tensor):
-    """The kernel: ``(best_gt (N, A) int32, best_iou (N, A) f32,
-    best_anchor (N, M) int32)``, as ``ops.matching.match_core``.
-
-    ``anchors (A, 4)`` f32, ``gt_boxes (N, M, 4)`` f32 and ``num_boxes
-    (N,)`` int32, all contiguous on one CUDA device.
-    """
+def _launch(lib: ctypes.CDLL | None, entry: str, anchors: torch.Tensor,
+            gt_boxes: torch.Tensor, num_boxes: torch.Tensor,
+            *counter: torch.Tensor):
+    """Checks the inputs and calls ``entry`` of ``lib`` (the package's
+    library by default): ``ssd_match``, or ``ssd_match_listed`` with its
+    ``counter``."""
     global launches
     dev = anchors.device
     if dev.type != "cuda":
@@ -100,27 +99,49 @@ def match_core_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
         raise ValueError(f"N={n} images must lie in [1, 65535]")
     limit = _max_gts(dev)
     if m > limit:
-        raise ValueError(
-            f"M={m} gts per image need {m * _SMEM_BYTES_PER_GT} bytes of "
-            f"shared memory; this card allows {limit} gts per block")
+        raise ValueError(f"M={m} gts per image do not fit one block's shared "
+                         f"memory: this card takes at most {limit}")
     best_gt = torch.empty((n, a), dtype=torch.int32, device=dev)
     best_iou = torch.empty((n, a), dtype=torch.float32, device=dev)
     best_anchor = torch.empty((n, m), dtype=torch.int32, device=dev)
     keys = torch.full((n, m), _ZERO_IOU_KEY, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().ssd_match(
+    rc = getattr(lib or _library(), entry)(
         ctypes.c_void_p(anchors.data_ptr()),
         ctypes.c_void_p(gt_boxes.data_ptr()),
         ctypes.c_void_p(num_boxes.data_ptr()), n, a, m,
         ctypes.c_void_p(best_gt.data_ptr()),
         ctypes.c_void_p(best_iou.data_ptr()),
         ctypes.c_void_p(keys.data_ptr()),
-        ctypes.c_void_p(best_anchor.data_ptr()), _index(dev),
+        ctypes.c_void_p(best_anchor.data_ptr()),
+        *(ctypes.c_void_p(t.data_ptr()) for t in counter), _index(dev),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"match kernel launch failed: CUDA error {rc}")
     launches += 1
     return best_gt, best_iou, best_anchor
+
+
+def match_core_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                    num_boxes: torch.Tensor, lib: ctypes.CDLL | None = None):
+    """The kernel: ``(best_gt (N, A) int32, best_iou (N, A) f32,
+    best_anchor (N, M) int32)``, as ``ops.matching.match_core``.
+
+    ``anchors (A, 4)`` f32, ``gt_boxes (N, M, 4)`` f32 and ``num_boxes
+    (N,)`` int32, all contiguous on one CUDA device. ``lib``: a library
+    from another ``match.cu`` (``bind``) to launch instead of the package's.
+    """
+    return _launch(lib, "ssd_match", anchors, gt_boxes, num_boxes)
+
+
+def listed_pairs(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                 num_boxes: torch.Tensor) -> int:
+    """The (valid gt, anchor) pairs whose IoUs the kernel computes after
+    its cull on these inputs, as the kernel counts them (one more launch,
+    through ``ssd_match_listed``); arguments as ``match_core_cuda``'s."""
+    listed = torch.zeros((), dtype=torch.int64, device=anchors.device)
+    _launch(None, "ssd_match_listed", anchors, gt_boxes, num_boxes, listed)
+    return int(listed)
 
 
 def match_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,

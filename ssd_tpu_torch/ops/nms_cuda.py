@@ -29,8 +29,6 @@ from ssd_tpu_torch.ops.nms import Detections
 
 launches = 0
 
-# per 32 candidates: the boxes (float4) and areas (f32), one keep word
-_SMEM_BYTES_PER_CHUNK = 32 * (16 + 4) + 4
 _lib = None
 
 
@@ -68,30 +66,22 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _smem_bytes(k: int) -> int:
-    """One problem's slice of shared memory: K rounded up to 32."""
-    return -(-k // 32) * _SMEM_BYTES_PER_CHUNK
-
-
-def max_k_for(smem_bytes: int) -> int:
-    """Largest K whose candidates fit one warp's slice in ``smem_bytes`` of
-    shared memory (the kernel then runs one problem a block)."""
-    return 32 * (smem_bytes // _SMEM_BYTES_PER_CHUNK)
-
-
 def _max_k(device: torch.device) -> int:
-    """Largest K the kernel takes on ``device``."""
-    return max_k_for(_build.smem_limit("nms", _index(device)))
+    """Largest K the kernel takes on ``device``: one problem's candidates
+    in one block's shared memory (``csrc/nms.cu`` lays it out)."""
+    return _build.device_query("nms", "max_k", _index(device))
 
 
 def suppress_cuda(boxes: torch.Tensor, top_idx: torch.Tensor,
-                  top_scores: torch.Tensor,
-                  iou_threshold: float) -> torch.Tensor:
+                  top_scores: torch.Tensor, iou_threshold: float,
+                  lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """The kernel: kept scores ``(N, C, K)`` f32, -1 for dropped or invalid.
 
     ``boxes (N, Q, 4)`` f32; ``top_idx (N, C, K)`` int32 in ``[0, Q)`` (not
     range-checked: that would wait for the device; ``class_topk`` produces
     it); ``top_scores (N, C, K)`` f32 sorted descending per problem.
+    ``lib``: a library from another ``nms.cu`` (``bind``) to launch
+    instead of the package's.
     """
     global launches
     if boxes.device.type != "cuda":
@@ -109,13 +99,11 @@ def suppress_cuda(boxes: torch.Tensor, top_idx: torch.Tensor,
     limit = _max_k(dev)
     if k > limit:
         raise ValueError(
-            f"K={k} candidates per problem need {_smem_bytes(k)} bytes of "
-            f"shared memory ({_SMEM_BYTES_PER_CHUNK} per 32 candidates); "
-            f"this card allows {limit} candidates ({_smem_bytes(limit)} "
-            f"bytes) per block")
+            f"K={k} candidates per problem do not fit one block's shared "
+            f"memory: this card takes at most {limit}")
     out = torch.empty_like(top_scores)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().ssd_nms_suppress(
+    rc = (lib or _library()).ssd_nms_suppress(
         ctypes.c_void_p(boxes.data_ptr()),
         ctypes.c_void_p(top_idx.data_ptr()),
         ctypes.c_void_p(top_scores.data_ptr()),

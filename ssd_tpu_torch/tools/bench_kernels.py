@@ -1,7 +1,7 @@
 """Device time of the NMS kernel (K1, ``csrc/nms.cu``) and the matching
 kernel (K2, ``csrc/match.cu``) at the main paths' shapes, by two methods:
 
-- ``ms``: ``calls`` calls of the wrapper captured once in a CUDA graph, the
+- ``ms``: ``CALLS`` calls of the wrapper captured once in a CUDA graph, the
   graph replayed between CUDA events: the device time of the wrapper's
   kernels alone (for K2 the key fill, the matching kernel and the unpack);
 - ``call_ms``: back-to-back eager calls of the wrapper between CUDA events:
@@ -24,7 +24,6 @@ and raises without one.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import os
@@ -44,35 +43,38 @@ from ssd_tpu_torch.tools.bench_fused_early import cuda_ms
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 FLAGSHIP = os.path.join(_ROOT, "configs", "coco_mobilenet_640_flagship.json")
+# calls captured in one graph, and replays of it
+CALLS = 20
+REPLAYS = 20
 
 
-def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
-    """Mean device milliseconds of one ``fn()``: ``calls`` calls captured
+def graph_ms(fn) -> float:
+    """Mean device milliseconds of one ``fn()``: ``CALLS`` calls captured
     in a CUDA graph once, after two eager warm-up calls, and the graph
-    replayed ``replays`` times between CUDA events."""
+    replayed ``REPLAYS`` times between CUDA events."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
+        for _ in range(CALLS):
             fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(replays):
+    for _ in range(REPLAYS):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
     del graph
-    return start.elapsed_time(end) / (calls * replays)
+    return start.elapsed_time(end) / (CALLS * REPLAYS)
 
 
-def kernel_ms(fn, calls: int = 20) -> dict:
+def kernel_ms(fn) -> dict:
     """``ms`` by graph replay and ``call_ms`` by eager calls of ``fn``."""
-    return {"ms": graph_ms(fn, calls), "timing": "graph replay",
+    return {"ms": graph_ms(fn), "timing": "graph replay",
             "call_ms": cuda_ms(fn, iters=200)}
 
 
@@ -98,22 +100,10 @@ def match_flagship_inputs(device: torch.device):
                  for x in (anchors, b["boxes"], b["num_boxes"]))
 
 
-@contextlib.contextmanager
-def _libraries(nms_lib, match_lib):
-    """The wrappers launch from these libraries inside the block."""
-    saved = nms_cuda._lib, matching_cuda._lib
-    nms_cuda._lib, matching_cuda._lib = nms_lib, match_lib
-    try:
-        yield
-    finally:
-        nms_cuda._lib, matching_cuda._lib = saved
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="a directory with nms.cu and "
                     "match.cu to time beside the package's")
-    ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_kernels times the card: no CUDA device")
@@ -137,18 +127,17 @@ def main(argv=None) -> int:
              else ["current"])
     rows = {k: {"nms": [], "match": []} for k in libs}
     for label in order:
-        with _libraries(*libs[label]):
-            got_nms = nms_cuda.suppress_cuda(*nms_in)
-            got_match = matching_cuda.match_core_cuda(*match_in)
-            torch.cuda.synchronize()
-            if not torch.equal(got_nms, want_nms) or not all(
-                    torch.equal(g, w) for g, w in zip(got_match, want_match)):
-                raise AssertionError(f"{label} kernels differ from current")
-            rows[label]["nms"].append(kernel_ms(
-                lambda: nms_cuda.suppress_cuda(*nms_in), args.calls))
-            rows[label]["match"].append(kernel_ms(
-                lambda: matching_cuda.match_core_cuda(*match_in),
-                args.calls))
+        nms_lib, match_lib = libs[label]
+        got_nms = nms_cuda.suppress_cuda(*nms_in, lib=nms_lib)
+        got_match = matching_cuda.match_core_cuda(*match_in, lib=match_lib)
+        torch.cuda.synchronize()
+        if not torch.equal(got_nms, want_nms) or not all(
+                torch.equal(g, w) for g, w in zip(got_match, want_match)):
+            raise AssertionError(f"{label} kernels differ from current")
+        rows[label]["nms"].append(kernel_ms(
+            lambda: nms_cuda.suppress_cuda(*nms_in, lib=nms_lib)))
+        rows[label]["match"].append(kernel_ms(
+            lambda: matching_cuda.match_core_cuda(*match_in, lib=match_lib)))
     print(json.dumps({
         "device": torch.cuda.get_device_name(dev), "nvidia_smi": smi,
         "nms_shape": {"N": 32, "Q": 1024, "C": 80, "K": 128},
@@ -157,7 +146,7 @@ def main(argv=None) -> int:
                         "M": int(match_in[1].shape[1])},
         "outputs_equal": True, "order": order, "runs": rows,
         # what this process built, by source
-        "ptxas": {k: _build.ptxas_report(v)
+        "ptxas": {k: _build.ptxas_lines(v)
                   for k, v in _build.build_logs.items()}}), flush=True)
     return 0
 

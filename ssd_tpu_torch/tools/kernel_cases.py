@@ -20,6 +20,9 @@ NMS_CASES = ("serve", "k100", "k512", "all_empty", "chain", "k1", "k32",
 MATCH_CASES = ("crowded", "no_gts", "duplicates", "no_overlap", "m1", "m13",
                "no_force_match", "dup_anchors", "edge_on_bound",
                "outside_unit")
+# the seeds of the cases' own draws
+NMS_SEED = 0
+MATCH_SEED = 2
 
 
 class NMSCase(NamedTuple):
@@ -72,13 +75,12 @@ def _nms_cfg(k: int, iou: float = 0.5, score: float = 0.05,
                 max_boxes=max_boxes)
 
 
-def nms_cases(n: int, q: int, c: int, max_k: int,
-              seed: int = 0) -> list[NMSCase]:
+def nms_cases(n: int, q: int, c: int, max_k: int) -> list[NMSCase]:
     """The cases of ``NMS_CASES``, in that order. ``serve`` is ``n`` images
     of ``q`` clustered candidates and ``c`` classes at K = 128 (``q`` >= 512
     and a multiple of 16); ``max_k`` is the largest K the kernel admits
     (a multiple of 32)."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(NMS_SEED)
     boxes, scores = clustered_problem(rng, n, q, c)
     b8, s8 = clustered_problem(rng, min(n, 8), q, c)
     cb, cs = chain_problem(2, 128, 4)
@@ -150,13 +152,13 @@ def _bound_gts(anchors: np.ndarray) -> np.ndarray:
     return np.asarray(out, np.float32)
 
 
-def match_cases(anchors: np.ndarray, boxes: np.ndarray, num_boxes: np.ndarray,
-                seed: int = 2) -> list[MatchCase]:
+def match_cases(anchors: np.ndarray, boxes: np.ndarray,
+                num_boxes: np.ndarray) -> list[MatchCase]:
     """The cases of ``MATCH_CASES``, in that order. ``crowded`` is the batch
     ``boxes (N, M, 4)``, ``num_boxes (N,)`` (N >= 8, M >= 13) on
     ``anchors (A, 4)``; the others take its first 8 images or draw their
     own gts."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(MATCH_SEED)
     anchors = np.asarray(anchors, np.float32)
     m = boxes.shape[1]
     gt = random_boxes(rng, (8, m))
