@@ -37,10 +37,12 @@ any failure raises:
    model's ds1/ds2 batch norm randomized so the fold is exercised, its
    launches counted; then against its plain version at that shape and at
    the edge cases (one image, 16 x 16, 48 x 80, C1 of 8 and 16, saturated
-   relu6): every element within one bf16 ulp, the bit-equal share printed;
-   against the model's own ds1+ds2 modules at atol 0.08, rtol 0.05, the
-   first and last rows and columns on their own; with its time, the plain
-   version's, the modules' and the card's bound;
+   relu6): within atol 0.08, rtol 0.05 and at least 95% bit-equal, overall
+   and on the first and last rows and columns, with the largest bf16 ulps
+   and absolute error printed; against the model's own ds1+ds2 modules at
+   the same bars; with its time, the plain version's, the modules' and the
+   card's bound (depthwise at the f32 peak, pointwise at the bf16
+   tensor-core peak);
 6. match: the anchor-matching kernel against its plain PyTorch version on
    the card, on every case of ``ssd_tpu_torch/tools/kernel_cases.py``: the
    flagship training shape (N=64, A=76 725, M=100, crowded 640 px scenes
@@ -63,8 +65,8 @@ any failure raises:
 9. the kernels line, then the card's ``nvidia-smi`` line, then the result.
 
 Times are CUDA-event times after warm-up, or host times around work that
-ends in a synchronise; they are from an unoptimised eager bring-up. K1's
-and K2's ``ms`` is device time by CUDA-graph replay, and ``call_ms`` the
+ends in a synchronise; they are from an unoptimised eager bring-up. K1's,
+K2's and K3's ``ms`` is device time by CUDA-graph replay, and ``call_ms`` the
 time of back-to-back eager calls of the wrapper, its host work included
 (``ssd_tpu_torch/tools/bench_kernels.py``).
 """
@@ -96,7 +98,7 @@ from ssd_tpu_torch.ops.postprocess import select_candidates_cells
 from ssd_tpu_torch.ops.targets import create_targets
 from ssd_tpu_torch.predictor import Predictor
 from ssd_tpu_torch.tools import bench_fused_early, kernel_cases
-from ssd_tpu_torch.tools.bench_fused_early import cuda_ms
+from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
 from ssd_tpu_torch.train import EXPORT_NAME, train
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
@@ -111,9 +113,11 @@ TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
-# H100 SXM data sheet: HBM rate and f32 (non-tensor-core) peak.
+# H100 SXM data sheet: HBM rate, f32 (non-tensor-core) peak and the dense
+# bf16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 IOU_FLOPS = 12  # 4 min/max, 3 sub, 2 clamp, 1 mul, 1 add, 1 div
 # matching: the IoU, the union's floor, and the compare into each maximum
 MATCH_FLOPS = 13
@@ -425,24 +429,7 @@ def phase_reference_golden() -> None:
 # ------------------------------------------------------------------ fused early
 
 EARLY_BARS = dict(atol=0.08, rtol=0.05)  # tests/test_fused_early.py's
-
-
-def randomize_early_bn(backbone, seed: int, gain: float = 1.0) -> None:
-    """ds1/ds2 batch norm as ``tests/test_fused_early.py`` draws it: scale
-    U(0.5, 1.5) (times ``gain`` for the pointwise ones), bias and mean
-    N(0, 0.3), variance U(0.5, 2)."""
-    rng = np.random.default_rng(seed)
-    with torch.no_grad():
-        for ds in ("ds1", "ds2"):
-            for part in ("depthwise", "pointwise"):
-                bn = getattr(getattr(backbone, ds), part).bn
-                c = bn.weight.shape[0]
-                g = gain if part == "pointwise" else 1.0
-                for t, v in ((bn.weight, rng.uniform(0.5, 1.5, c) * g),
-                             (bn.bias, rng.normal(0, 0.3, c)),
-                             (bn.running_mean, rng.normal(0, 0.3, c)),
-                             (bn.running_var, rng.uniform(0.5, 2.0, c))):
-                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+EARLY_BIT_EQUAL = 0.95  # least share of K3's outputs equal to the plain's
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -457,24 +444,43 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
                  .max())
 
 
-def _close_to_modules(got: torch.Tensor, want: torch.Tensor) -> None:
-    """The JAX kernel test's bars, the first and last rows and columns on
-    their own (NCHW: rows are dim 2, columns dim 3)."""
+def _borders(t: torch.Tensor):
+    """The first and last rows and columns of an NCHW tensor (rows are dim
+    2, columns dim 3)."""
+    return [t.select(dim, i) for dim in (2, 3) for i in (0, -1)]
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """The JAX kernel test's bars, overall and on the borders."""
     g, w = got.float(), want.float()
-    for part in (slice(None), 0, -1):
-        for dim in (2, 3):
-            gp = g if part == slice(None) else g.select(dim, part)
-            wp = w if part == slice(None) else w.select(dim, part)
-            if not torch.allclose(gp, wp, **EARLY_BARS):
-                raise AssertionError(
-                    f"fused vs modules: {float((gp - wp).abs().max())} off")
+    for gp, wp in zip([g] + _borders(g), [w] + _borders(w)):
+        if not torch.allclose(gp, wp, **EARLY_BARS):
+            raise AssertionError(
+                f"{what}: {float((gp - wp).abs().max())} off")
+
+
+def hold_to_plain(got: torch.Tensor, want: torch.Tensor, name) -> dict:
+    """K3 against its plain version on the card: within the JAX bars, and
+    at least ``EARLY_BIT_EQUAL`` of the elements bit-equal, overall and on
+    the borders (the tensor cores sum pw1's and pw2's exact products in
+    their own order, so an f32 sum, and rarely a bf16 output, differs)."""
+    _close(got, want, f"fused_early {name} vs plain")
+    equal = float((got == want).float().mean())
+    border_equal = min(float((g == w).float().mean())
+                       for g, w in zip(_borders(got), _borders(want)))
+    if min(equal, border_equal) < EARLY_BIT_EQUAL:
+        raise AssertionError(f"fused_early {name}: bit-equal share {equal}, "
+                             f"{border_equal} on the borders")
+    return {"max_ulps": bf16_ulps(got, want), "bit_equal_share": equal,
+            "bit_equal_share_borders": border_equal,
+            "max_abs_err": float((got.float() - want.float()).abs().max())}
 
 
 def check_early_case(name: str, backbone, x: torch.Tensor,
                      modules: bool = True, extra: dict | None = None) -> dict:
-    """Kernel vs plain on the card (within one bf16 ulp, share bit-equal),
-    and vs the model's ds1+ds2 modules at the JAX kernel test's bars; the
-    row, with ``extra`` merged in, is printed and returned."""
+    """Kernel vs plain on the card (``hold_to_plain``), and vs the model's
+    ds1+ds2 modules at the JAX kernel test's bars; the row, with ``extra``
+    merged in, is printed and returned."""
     folded = fused_early.fold_early_params(backbone)
     with torch.inference_mode():
         got = fused_early_cuda.fused_ds1_ds2_cuda(x, folded)
@@ -484,18 +490,12 @@ def check_early_case(name: str, backbone, x: torch.Tensor,
     if got.shape != want.shape or not got.is_contiguous(
             memory_format=torch.channels_last):
         raise AssertionError(f"fused_early {name}: shape or layout")
-    ulps = bf16_ulps(got, want)
-    equal = float((got == want).float().mean())
     row = {"phase": "fused_early", "case": name, "shape_in": list(x.shape),
-           "shape_out": list(got.shape), "max_ulps": ulps,
-           "bit_equal_share": equal,
-           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "shape_out": list(got.shape), **hold_to_plain(got, want, name),
            "saturated_share": float((got == 6).float().mean()),
            "zero_share": float((got == 0).float().mean())}
-    if ulps > 1.0:
-        raise AssertionError(f"fused_early {name}: {ulps} bf16 ulps off")
     if modules:
-        _close_to_modules(got, ref)
+        _close(got, ref, f"fused_early {name} vs modules")
         row["max_abs_diff_modules"] = float(
             (got.float() - ref.float()).abs().max())
     row.update(extra or {})
@@ -506,17 +506,30 @@ def check_early_case(name: str, backbone, x: torch.Tensor,
 def early_bound(x: torch.Tensor, folded: dict) -> dict:
     """The least time of the fused function on these inputs: each input
     and weight byte read once and the output written once, over the HBM
-    rate; its multiply-adds (two operations each) over the f32 peak."""
+    rate; the depthwise multiply-adds (two operations each) over the f32
+    peak plus the pointwise ones over the bf16 tensor-core peak, each of
+    those two bf16 products (the weight's hi and lo terms). Also
+    ``bound_f32_ms``, every multiply-add once at the f32 peak (the bound of
+    the earlier all-f32 design, kept so its times stay comparable)."""
     n, c1, h, w = x.shape
     c2, c3 = folded["pw1_k"].shape[1], folded["pw2_k"].shape[1]
     ho, wo = h // 2, w // 2
     nbytes = (x.numel() * 2 + n * c3 * ho * wo * 2
               + sum(t.numel() * 4 for t in folded.values()))
-    macs = n * (h * w * c1 * (9 + c2) + ho * wo * c2 * (9 + c3))
+    dw_macs = n * 9 * (h * w * c1 + ho * wo * c2)
+    pw_macs = n * (h * w * c1 * c2 + ho * wo * c2 * c3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / F32_FLOP_PER_S * 1e3
-    return {"bytes": nbytes, "macs": macs, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_dw = 2 * dw_macs / F32_FLOP_PER_S * 1e3
+    t_pw = 2 * 2 * pw_macs / BF16_TENSOR_FLOP_PER_S * 1e3
+    t_ops = t_dw + t_pw
+    t_f32 = max(t_bytes, 2 * (dw_macs + pw_macs) / F32_FLOP_PER_S * 1e3)
+    return {"bytes": nbytes, "macs": dw_macs + pw_macs,
+            "depthwise_macs": dw_macs, "pointwise_macs": pw_macs,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+            "bound_depthwise_f32_ms": t_dw,
+            "bound_pointwise_bf16_ms": t_pw, "bound_f32_ms": t_f32}
 
 
 def phase_fused_early(power_line: str) -> tuple[dict, int]:
@@ -545,8 +558,11 @@ def phase_fused_early(power_line: str) -> tuple[dict, int]:
     with torch.inference_mode():
         plain_ms = cuda_ms(lambda: fused_early.fused_ds1_ds2_plain(
             x, folded), iters=2, warmup=1)
+        timed = kernel_ms(lambda: fused_early_cuda.fused_ds1_ds2_cuda(
+            x, folded))
     main = check_early_case("served_b32", backbone, x, extra={
-        "launches_entry_point": launches, "ms": bench["fused_ms"],
+        "launches_entry_point": launches, **timed,
+        "entry_point_ms": bench["fused_ms"],
         "unfused_ms": bench["unfused_ms"], "plain_ms": plain_ms,
         "entry_point_max_abs_diff": bench["max_abs_diff"],
         **early_bound(x, folded), "library_ms": None,
@@ -904,11 +920,19 @@ def main() -> int:
         "source": "ssd_tpu_torch/csrc/fused_early.cu",
         "replaces": "ssd_tpu/ops/fused_early.py:187",
         "launches": early_launches,
-        "max_abs_err": main_early["max_abs_err"], "ms": main_early["ms"],
+        "max_abs_err": main_early["max_abs_err"],
+        "max_ulps": main_early["max_ulps"],
+        "bit_equal_share": main_early["bit_equal_share"],
+        "ms": main_early["ms"], "timing": main_early["timing"],
+        "call_ms": main_early["call_ms"],
         "plain_ms": main_early["plain_ms"],
         "unfused_ms": main_early["unfused_ms"],
         "bound_ms": main_early["bound_ms"],
-        "bound_by": main_early["bound_by"], "library_ms": None}]})
+        "bound_by": main_early["bound_by"],
+        **{k: main_early[k] for k in (
+            "bound_bytes_ms", "bound_operations_ms", "bound_depthwise_f32_ms",
+            "bound_pointwise_bf16_ms", "bound_f32_ms")},
+        "library_ms": None, "ptxas": ptxas.get("fused_early")}]})
     print(power_line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

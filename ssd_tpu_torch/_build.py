@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_device_values: dict[tuple[str, str, int], int] = {}
+_device_values: dict[tuple[str, str, int, int], int] = {}
 # nvcc's output (with ptxas's report) per freshly built source: keyed by
 # name for csrc/, by source path for another directory
 build_logs: dict[str, str] = {}
@@ -121,15 +121,18 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def device_query(name: str, query: str, index: int) -> int:
+def device_query(name: str, query: str, index: int,
+                 lib: ctypes.CDLL | None = None) -> int:
     """``csrc/<name>.cu``'s ``ssd_<name>_<query>(device, &out)`` for CUDA
     device ``index`` (a limit of the card, such as the largest problem a
-    kernel takes): asked once per device, then cached, so a launch pays no
-    ctypes call for it."""
-    key = (name, query, index)
+    kernel takes), from ``lib`` (another build of the source) or the
+    package's library: asked once per device and library, then cached, so
+    a launch pays no ctypes call for it."""
+    lib = load(name) if lib is None else lib
+    key = (name, query, index, lib._handle)
     value = _device_values.get(key)
     if value is None:
-        fn = getattr(load(name), f"ssd_{name}_{query}")
+        fn = getattr(lib, f"ssd_{name}_{query}")
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         out = ctypes.c_int(0)

@@ -6,21 +6,40 @@ Counterpart of ``ssd_tpu/ops/fused_early.py`` (``fold_convbn``,
 kernel itself is ``csrc/fused_early.cu``, launched by
 ``ops/fused_early_cuda.py``.
 
-The function, on ``x (N, C1, H, W)`` with H and W even, in f32 from the
-widened input and rounded to bf16 once at the end:
+The function, on ``x (N, C1, H, W)`` with H and W even, with its rounding
+points (the pointwise products take bf16 operands on the tensor cores,
+with f32 sums; everything else is f32):
 
-1. dw1: depthwise 3x3, stride 1, SAME (1 on every side), + bias, relu6;
-2. pw1: 1x1 from C1 to C2, + bias, relu6;
-3. dw2: depthwise 3x3, stride 2, SAME on an even input (0 before, 1
-   after: the padded row H and column W of ds1's output are zero), + bias,
-   relu6;
-4. pw2: 1x1 from C2 to C3, + bias, relu6 -> ``(N, C3, H/2, W/2)``.
+1. x (bf16) is widened to f32;
+2. dw1: depthwise 3x3, stride 1, SAME (1 on every side), + bias, relu6,
+   in f32; **rounded to bf16** (pw1's A operand);
+3. pw1: 1x1 from C1 to C2, the bf16 A times ``pw1_k`` split into two
+   bf16 terms, ``hi = bf16(k)`` and ``lo = bf16(k - hi)``: both products
+   exact in f32, sums in f32, + bias (f32), relu6. The result stays
+   **f32**;
+4. dw2: depthwise 3x3, stride 2, SAME on an even input (0 before, 1
+   after: the padded row H and column W of pw1's output are zero), +
+   bias, relu6, in f32; **rounded to bf16** (pw2's A operand);
+5. pw2: 1x1 from C2 to C3, the bf16 A times ``pw2_k`` as hi + lo, f32
+   sums, + bias, relu6, **rounded to bf16** once -> ``(N, C3, H/2, W/2)``.
+
+The TPU kernel's products are ``jnp.dot`` at default precision: one bf16
+pass on the MXU, which rounds the weights to bf16 as well. That single
+term misses the JAX package's own bars (atol 0.08, rtol 0.05) against the
+flax blocks where a sum of large products cancels: with the pointwise
+batch-norm scales raised 8x, by 0.389 on 62 of 15 360 outputs
+(``tests/test_torch_fused_early.py``'s saturated case). Rounding only the
+activations stays within them (0.101 at most), and hi + lo carries a
+weight to about 2^-17 of itself.
 
 Each depthwise output adds its 9 taps in (dy, dx) order, starting from the
-first product, then the bias; each pointwise output adds its C_in products
-in channel order, starting from the first, then the bias. Every product and
-sum is rounded to f32 on its own. The kernel does the same, built without
-FMA contraction, so the two agree bit for bit.
+first product, then the bias; every product and sum is rounded to f32 on
+its own, and the kernel does the same (built without FMA contraction), so
+the depthwise stages agree bit for bit. Each pointwise output here adds,
+channel by channel from the first, ``A * hi`` then ``A * lo``, then the
+bias; the kernel's tensor cores sum the same exact products in their own
+order, so its f32 sums may differ in the last bits, and its output rarely
+by one bf16 step.
 
 The folded operands keep the port's layout, none of the TPU's: ``dw*_k (C,
 3, 3)``, ``pw*_k (C_in, C_out)``, biases ``(C,)``, all f32. There is no
@@ -99,18 +118,36 @@ def _depthwise(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor,
     return _relu6(acc + b.view(1, -1, 1, 1))
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even), back in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def split_bf16(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``k`` as two bf16 terms (in f32): ``hi = bf16(k)``, ``lo =
+    bf16(k - hi)``; ``k - hi`` is exact in f32."""
+    hi = _bf16(k)
+    return hi, _bf16(k - hi)
+
+
 def _pointwise(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``x (N, C_in, H, W)`` f32, ``k (C_in, C_out)``: the products added in
-    input-channel order, then the bias, then relu6."""
-    acc = x[:, 0:1] * k[0].view(1, -1, 1, 1)
-    for c in range(1, k.shape[0]):
-        acc = acc + x[:, c:c + 1] * k[c].view(1, -1, 1, 1)
+    """``x (N, C_in, H, W)`` rounded to bf16, ``k (C_in, C_out)`` split into
+    ``hi + lo``: for each input channel in order, ``x * hi`` then ``x *
+    lo`` added (each product exact), then the bias, then relu6."""
+    x = _bf16(x)
+    hi, lo = split_bf16(k)
+    acc = None
+    for c in range(k.shape[0]):
+        for part in (hi, lo):
+            term = x[:, c:c + 1] * part[c].view(1, -1, 1, 1)
+            acc = term if acc is None else acc + term
     return _relu6(acc + b.view(1, -1, 1, 1))
 
 
 def fused_ds1_ds2_plain(x: torch.Tensor, folded: dict) -> torch.Tensor:
     """The plain version: ``x (N, C1, H, W)`` (bf16) -> ``(N, C3, H/2,
-    W/2)`` bf16 in ``channels_last``, on any device."""
+    W/2)`` bf16 in ``channels_last``, on any device, rounding at the module
+    docstring's points."""
     y = _depthwise(x.float(), folded["dw1_k"], folded["dw1_b"], (1, 1, 1, 1), 1)
     y = _pointwise(y, folded["pw1_k"], folded["pw1_b"])
     z = _depthwise(y, folded["dw2_k"], folded["dw2_b"], (0, 1, 0, 1), 2)

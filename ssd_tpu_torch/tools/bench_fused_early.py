@@ -13,8 +13,8 @@ absolute difference between the kernel and the modules (cuDNN in bf16, each
 conv rounded to bf16), and the CUDA-event time of each after warm-up. Runs
 on the card and raises without one.
 
-``chip_smoke.py`` calls ``reference_backbone``, ``make_input`` and ``run``
-on the served model's weights and its stem output.
+``chip_smoke.py`` calls ``reference_backbone``, ``randomize_early_bn`` and
+``run`` on the served model's weights and its stem output.
 """
 
 from __future__ import annotations
@@ -47,6 +47,24 @@ def reference_backbone(width: float = 1.0, seed: int = 0, device=None):
     if dev.type == "cuda":
         backbone.to(memory_format=torch.channels_last)
     return backbone
+
+
+def randomize_early_bn(backbone, seed: int, gain: float = 1.0) -> None:
+    """ds1/ds2 batch norm as ``tests/test_fused_early.py`` draws it: scale
+    U(0.5, 1.5) (times ``gain`` for the pointwise ones), bias and mean
+    N(0, 0.3), variance U(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for ds in ("ds1", "ds2"):
+            for part in ("depthwise", "pointwise"):
+                bn = getattr(getattr(backbone, ds), part).bn
+                c = bn.weight.shape[0]
+                g = gain if part == "pointwise" else 1.0
+                for t, v in ((bn.weight, rng.uniform(0.5, 1.5, c) * g),
+                             (bn.bias, rng.normal(0, 0.3, c)),
+                             (bn.running_mean, rng.normal(0, 0.3, c)),
+                             (bn.running_var, rng.uniform(0.5, 2.0, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
 
 
 def make_input(batch: int, size: int, channels: int, seed: int = 0,

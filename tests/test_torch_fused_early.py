@@ -1,16 +1,21 @@
 """The port's fused ds1+ds2 (K3) against the JAX package's, on the CPU.
 
 * ``fold_convbn`` equals the JAX package's bit for bit at every block.
-* The port's plain ``fused_ds1_ds2`` is within one bf16 ulp of the JAX
-  package's Pallas kernel run in interpret mode (both compute in f32 and
-  round once; only the pointwise sums' order differs), and within the JAX
-  kernel test's bars of the flax ds1+ds2 blocks (atol 0.08, rtol 0.05, the
-  first and last rows on their own).
+* The port's plain ``fused_ds1_ds2`` rounds both pointwise activations to
+  bf16 and carries each pointwise weight as two bf16 terms (hi + lo), with
+  f32 sums (``ops/fused_early.py`` says why not one term). It is held
+  within the JAX kernel test's bars (atol 0.08, rtol 0.05, the first and
+  last rows and columns on their own) of the JAX package's Pallas kernel
+  run in interpret mode (which computes those products in f32) and of the
+  flax ds1+ds2 blocks, and to a float64 evaluation with the same rounding
+  points within one bf16 ulp.
 * The edge shapes the kernel must take: one image, 16 x 16, H != W, C1 of 8
-  and 16, inputs that saturate relu6.
-* The wrapper's checks, on both devices.
-* A ``cuda`` test holds the kernel to the plain version on the card (it
-  skips here, where there is no card).
+  and 16, inputs that saturate relu6; C1 = 8 padded to the tensor cores'
+  K of 16 adds exact zeros.
+* The wrapper's checks, on both devices, and ``tools/bench_kernels.py``'s
+  K3 inputs.
+* A ``cuda`` test holds the kernel to the plain version on the card at the
+  card's bars (it skips here, where there is no card).
 """
 
 import numpy as np
@@ -26,7 +31,7 @@ import chip_smoke
 from ssd_tpu_torch.convert import convert_variables
 from ssd_tpu_torch.models.mobilenet import MobileNetV1, _width
 from ssd_tpu_torch.ops import fused_early, fused_early_cuda
-from ssd_tpu_torch.tools import bench_fused_early
+from ssd_tpu_torch.tools import bench_fused_early, bench_kernels
 from tests.test_fused_early import (_randomized_backbone_vars,
                                     _reference_ds1_ds2)
 
@@ -113,7 +118,10 @@ def test_fold_takes_a_state_dict(half_width):
 
 def test_plain_within_one_ulp_of_jax_interpret_kernel(half_width):
     """At width 0.5 (C1 16, C2 32, C3 64), 2 x 32 x 32: two of the TPU
-    kernel's row blocks, so its block edges and both image edges are in."""
+    kernel's row blocks, so its block edges and both image edges are in.
+    Interpret mode computes the pointwise products in f32, where the port
+    rounds their activations to bf16, so the two agree at the JAX bars,
+    not to one ulp; the name is kept from when both were all f32."""
     params, stats, port = half_width
     x = _x(np.random.default_rng(1), 2, 32, 32, 16)
     folded = jax_fused_early.fold_early_params(
@@ -125,7 +133,11 @@ def test_plain_within_one_ulp_of_jax_interpret_kernel(half_width):
         _port_x(x), fused_early.fold_early_params(port)))
     assert got.shape == want.shape == (2, 16, 16, 64)
     assert (got > 0).mean() > 0.3  # live
-    assert bf16_ulps(got, want) <= 1.0
+    _assert_bars(got, want)
+    # measured: 230 bf16 ulps at most (on a value near 0), mean |diff|
+    # 4.33e-4, 81.0% bit-equal; the bars are twice that
+    assert bf16_ulps(got, want) <= 460
+    assert np.abs(got - want).mean() <= 8.7e-4
 
 
 @pytest.mark.parametrize("width", [1.0, 0.5])
@@ -159,22 +171,99 @@ def test_edge_shapes_match_flax_blocks(case):
 
 
 def test_plain_rounds_once_from_f32_ops(half_width):
-    """The plain version is its documented op order: a float64 evaluation
-    of the same function lands within one bf16 ulp."""
+    """The plain version is its documented function: a float64 evaluation
+    with bf16 rounding at the same points (both pointwise A operands, and
+    the weights as hi + lo) lands within one bf16 ulp."""
     _, _, port = half_width
     folded = fused_early.fold_early_params(port)
     x = _port_x(_x(np.random.default_rng(5), 1, 10, 12, 16))
     f64 = {k: v.double() for k, v in folded.items()}
+
+    def bf16(t):
+        return t.to(torch.bfloat16).double()
+
+    def hi_lo(k):  # the two bf16 terms, added exactly in f64
+        hi = bf16(k)
+        return hi + bf16(k - hi)
+
     y = fused_early._depthwise(x.double(), f64["dw1_k"], f64["dw1_b"],
                                (1, 1, 1, 1), 1)
-    y = torch.clamp(torch.einsum("nchw,co->nohw", y, f64["pw1_k"])
+    y = torch.clamp(torch.einsum("nchw,co->nohw", bf16(y), hi_lo(f64["pw1_k"]))
                     + f64["pw1_b"].view(1, -1, 1, 1), 0, 6)
     z = fused_early._depthwise(y, f64["dw2_k"], f64["dw2_b"], (0, 1, 0, 1), 2)
-    z = torch.clamp(torch.einsum("nchw,co->nohw", z, f64["pw2_k"])
+    z = torch.clamp(torch.einsum("nchw,co->nohw", bf16(z), hi_lo(f64["pw2_k"]))
                     + f64["pw2_b"].view(1, -1, 1, 1), 0, 6)
     got = fused_early.fused_ds1_ds2_plain(x, folded)
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert bf16_ulps(_nhwc(got), _nhwc(z.float())) <= 1.0
+
+
+def test_plain_rounds_at_the_pointwise_operands(half_width):
+    """The rounding points matter, and are exactly these: the plain version
+    differs from the all-f32 function, and equals the same ops spelled with
+    ``.bfloat16().float()`` at pw1's and pw2's inputs, each weight as the
+    sum of its two bf16 terms, product by product."""
+    _, _, port = half_width
+    folded = fused_early.fold_early_params(port)
+    x = _port_x(_x(np.random.default_rng(6), 2, 16, 20, 16))
+
+    def pointwise(a, k, b, rounded):
+        if not rounded:
+            return torch.clamp(torch.einsum("nchw,co->nohw", a, k)
+                               + b.view(1, -1, 1, 1), 0, 6)
+        a = a.bfloat16().float()
+        hi = k.bfloat16().float()
+        lo = (k - hi).bfloat16().float()
+        acc = a[:, 0:1] * hi[0].view(1, -1, 1, 1)
+        acc = acc + a[:, 0:1] * lo[0].view(1, -1, 1, 1)
+        for c in range(1, k.shape[0]):
+            acc = acc + a[:, c:c + 1] * hi[c].view(1, -1, 1, 1)
+            acc = acc + a[:, c:c + 1] * lo[c].view(1, -1, 1, 1)
+        return torch.clamp(acc + b.view(1, -1, 1, 1), 0, 6)
+
+    def spelled(rounded: bool) -> torch.Tensor:
+        y = fused_early._depthwise(x.float(), folded["dw1_k"], folded["dw1_b"],
+                                   (1, 1, 1, 1), 1)
+        y = pointwise(y, folded["pw1_k"], folded["pw1_b"], rounded)
+        z = fused_early._depthwise(y, folded["dw2_k"], folded["dw2_b"],
+                                   (0, 1, 0, 1), 2)
+        z = pointwise(z, folded["pw2_k"], folded["pw2_b"], rounded)
+        return z.to(torch.bfloat16)
+
+    got = fused_early.fused_ds1_ds2_plain(x, folded)
+    assert torch.equal(got, spelled(True))
+    all_f32 = spelled(False)
+    assert (got != all_f32).float().mean() > 0.05
+    assert torch.allclose(got.float(), all_f32.float(), **BARS)
+
+
+def test_k_padding_at_c1_8_adds_exact_zeros():
+    """The kernel pads K = C1 = 8 to the tensor cores' 16 with zero
+    channels: C1 = 8 passes the wrapper's checks, and the same function
+    with 8 zero channels appended to x, the taps, the biases and pw1's rows
+    gives the same output bit for bit. A width that is not a multiple of 8
+    is refused."""
+    port = bench_fused_early.reference_backbone(0.25, seed=2, device="cpu")
+    bench_fused_early.randomize_early_bn(port, seed=7)
+    folded = fused_early.fold_early_params(port)
+    assert folded["pw1_k"].shape == (8, 16)
+    x = _port_x(_x(np.random.default_rng(8), 2, 12, 18, 8))
+    assert fused_early_cuda.check_inputs(x, folded) == (8, 16, 32)
+    got = fused_early_cuda.fused_ds1_ds2(x, folded)
+
+    def pad(t):  # the channel axis of every C1-sized operand to 16
+        return torch.cat([t, torch.zeros_like(t)], dim=0).contiguous()
+
+    padded = {**folded, "dw1_k": pad(folded["dw1_k"]),
+              "dw1_b": pad(folded["dw1_b"]), "pw1_k": pad(folded["pw1_k"])}
+    x16 = torch.cat([x, torch.zeros_like(x)], dim=1).contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(fused_early_cuda.fused_ds1_ds2(x16, padded), got)
+
+    odd = {**folded, "pw2_k": folded["pw2_k"][:, :20].contiguous(),
+           "pw2_b": folded["pw2_b"][:20].contiguous()}
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_early_cuda.check_inputs(x, odd)
 
 
 # ------------------------------------------------------------------ the wrapper
@@ -214,8 +303,32 @@ def test_bench_tool_runs_its_path_on_cpu():
 
 # ------------------------------------------------------------------ on the card
 
+def test_bench_kernels_k3_inputs_and_lib_checks():
+    """``tools/bench_kernels.py``'s K3 inputs at a small size on the CPU,
+    and the kernel wrapper's ``lib`` argument, which only CUDA tensors
+    take."""
+    backbone, x, folded = bench_kernels.early_inputs(
+        "cpu", batch=2, size=16, width=0.25)
+    assert x.shape == (2, 8, 16, 16) and x.dtype == torch.bfloat16
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert set(folded) == set(fused_early.FOLDED_KEYS)
+    # batch norm is randomized as chip_smoke draws it, so the fold is not
+    # the identity
+    bn = backbone.ds1.pointwise.bn
+    assert not torch.allclose(bn.running_var, torch.ones_like(bn.running_var))
+    out = fused_early_cuda.fused_ds1_ds2(x, folded)
+    assert out.shape == (2, 32, 8, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_early_cuda.fused_ds1_ds2_cuda(x, folded, lib=object())
+
+
+# ------------------------------------------------------------------ on the card
+
 @pytest.mark.cuda
 def test_kernel_equals_plain_on_the_card():
+    """At the card's bars (``chip_smoke.check_early_case``): the JAX bars
+    overall and on the first and last rows and columns, and at least 95%
+    of the elements bit-equal there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     rng = np.random.default_rng(0)
@@ -227,4 +340,4 @@ def test_kernel_equals_plain_on_the_card():
         got = fused_early_cuda.fused_ds1_ds2_cuda(x, folded)
         want = fused_early.fused_ds1_ds2_plain(x, folded)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (width, n, h, w)
+        chip_smoke.hold_to_plain(got, want, (width, n, h, w))
