@@ -17,13 +17,31 @@ any failure raises:
    threshold, thresholds of 0, -0.5 and 1), with its time, the plain
    version's and the card's bound;
 4. sanity: the trained sanity artifact (``ssd_tpu_torch/assets``) served by
-   ``Predictor.from_npz``; f32 detections set-equal to the stored JAX ones,
-   bf16 detections' share of the JAX bf16 ones;
+   ``Predictor.from_npz``; f32 detections on both feeds (the packed s8 and
+   the raw uint8) set-equal to the stored JAX ones, bf16 detections' share
+   of the JAX bf16 ones;
+   int8_sanity: the same artifact in int8 (``int8_neck``), calibrated on
+   the card on the seed-7 batch of 8 as the JAX package does: its 39
+   scales against JAX's stored ones (``assets/sanity_int8_v1.npz``), the
+   mAP of the 32 val scenes by the port's own evaluator within 0.002 of
+   JAX's CPU mAP, and, served on JAX's stored scales instead, the share of
+   JAX's int8 detections matched under the golden rule (reported);
+   gemm_exact: the int8 product at the flagship's P3 class ``predict``
+   shape (b32: M = 204 800, K = 1152, N = 720) on the card equal, element
+   for element, to the same conv on the CPU, in s32 and dequantized bf16,
+   the CPU's own sums checked against an int32 matmul on a slice; and the
+   shapes ``torch._int_mm`` takes on the card;
 5. flagship: ``configs/coco_mobilenet_640_flagship.json`` at full width
    (bf16, 640 px, 80 classes, seeded weights) serving 10 batches of 32
    through ``Predictor.predict``, a list of mixed-size images and a
    letterboxed request, with the NMS launches of that run counted; on one
    batch the kernel path and the plain ``batched_nms`` agree exactly;
+   int8_flagship: the same in int8 with ``int8_neck`` (the shipped serving
+   configuration), calibrated on one seeded batch of 8 (absmax, and a
+   99.9-percentile run on another copy of the model, past 2^24 values),
+   the packed and raw uint8 feeds' raw maps bit-equal, the bf16 model of
+   the same weights timed in turns with it, and the P3 class ``predict``
+   conv's quantize, im2col, GEMM and dequantize timed;
    reference_serve: the same for ``configs/coco_mobilenet_640.json`` (the
    reference MobileNet-v1 schedule, stem at stride 2 then ds1 and ds2) on
    the raw uint8 feed;
@@ -87,16 +105,21 @@ import torch
 
 from ssd_tpu_torch import _build
 from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
-from ssd_tpu_torch.convert import load_npz_artifact
+from ssd_tpu_torch.convert import is_scale, load_npz_artifact, scale_name
 from ssd_tpu_torch.data import synthetic
+from ssd_tpu_torch.eval import sanity
 from ssd_tpu_torch.models.detector import Detector, normalize_images
 from ssd_tpu_torch.models.fpn import flatten_levels
+from ssd_tpu_torch.models.layers import (conv_int8, dequantize, im2col,
+                                         int_mm, quantize_activation,
+                                         quantize_weight)
 from ssd_tpu_torch.ops import (box_utils, fused_early, fused_early_cuda,
                                losses, matching, matching_cuda, nms, nms_cuda)
 from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.postprocess import select_candidates_cells
 from ssd_tpu_torch.ops.targets import create_targets
 from ssd_tpu_torch.predictor import Predictor
+from ssd_tpu_torch.quant import calibrate, int8_config
 from ssd_tpu_torch.tools import bench_fused_early, kernel_cases
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
@@ -110,6 +133,7 @@ REFERENCE = os.path.join(ROOT, "configs", "coco_mobilenet_640.json")
 ASSET = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_v1.npz")
 GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets", "golden_cells_v1.npz")
 TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
+INT8_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_int8_v1.npz")
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
@@ -118,6 +142,7 @@ DEVICE = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+INT8_TENSOR_OP_PER_S = 1979e12
 IOU_FLOPS = 12  # 4 min/max, 3 sub, 2 clamp, 1 mul, 1 add, 1 div
 # matching: the IoU, the union's floor, and the compare into each maximum
 MATCH_FLOPS = 13
@@ -127,6 +152,7 @@ CROWDED_SEED = 0
 # Class-head bias of the seeded flagship: sigmoid(-2.5) = 0.076, above the
 # 0.05 score threshold, so candidates of every class are live and NMS works.
 FLAGSHIP_CLASS_BIAS = -2.5
+SANITY_MAP_BAR = 0.002  # int8 mAP against JAX's, the bar bf16 is held to
 
 
 def emit(obj: dict) -> None:
@@ -267,26 +293,162 @@ def phase_sanity() -> None:
                    for t in ("f32", "bf16")}
     p16 = Predictor.from_npz(ASSET, device=DEVICE)
     cfg, state = load_npz_artifact(ASSET)
-    p32 = Predictor(dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, compute_dtype="float32")), state, device=DEVICE)
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    p32 = Predictor(cfg32, state, device=DEVICE)
+    p32_raw = Predictor(cfg32, state, device=DEVICE, packed_ingest=False)
+    assert p32._packed and not p32_raw._packed
     got32 = p32.predict(images)
+    got32_raw = p32_raw.predict(images)
     got16 = p16.predict(images)
     launches = nms_cuda.launches
     m32, t32 = set_match(got32, jax_det["f32"])
+    m32_raw, _ = set_match(got32_raw, jax_det["f32"])
     m16, t16 = set_match(got16, jax_det["bf16"])
     # one bf16 step of a logit near -3 moves its score by ~1e-3, so bf16
     # detections are also matched with the score held to 1e-2
     m16_loose, _ = set_match(got16, jax_det["bf16"], score_tol=1e-2)
-    nb_equal = bool((got32["num_boxes"] == jax_det["f32"]["num_boxes"]).all())
+    nb_equal = all(bool((g["num_boxes"] == jax_det["f32"]["num_boxes"]).all())
+                   for g in (got32, got32_raw))
     emit({"phase": "sanity", "images": len(images), "nms_launches": launches,
           "f32_matched": m32, "f32_total": t32, "f32_num_boxes_equal": nb_equal,
+          "f32_raw_feed_matched": m32_raw,
           "bf16_matched": m16, "bf16_total": t16,
           "bf16_match_share": m16 / max(t16, 1),
           "bf16_match_share_score_1e-2": m16_loose / max(t16, 1)})
-    if launches < 2:
+    if launches < 3:
         raise AssertionError("sanity phase did not run the NMS kernel")
-    if m32 != t32 or not nb_equal:
-        raise AssertionError(f"f32 detections differ from JAX: {m32}/{t32}")
+    if m32 != t32 or m32_raw != t32 or not nb_equal:
+        raise AssertionError(f"f32 detections differ from JAX: {m32}/{t32} "
+                             f"packed, {m32_raw}/{t32} raw")
+
+
+def _scales(model) -> dict:
+    return {k: float(v) for k, v in model.state_dict().items()
+            if is_scale(k)}
+
+
+def phase_int8_sanity(power_line: str) -> int:
+    """The sanity artifact in int8 on the card: calibrated here, scored by
+    the port's evaluator against JAX's CPU mAP; then served on JAX's
+    stored scales. Returns the NMS launches of the calibrated run."""
+    with np.load(INT8_REF) as z:
+        jax_scales = {scale_name(k): float(z[k]) for k in z.files
+                      if k.startswith("quant/")}
+        jax_det = {k: z[f"jax_int8_{k}"] for k in DET_KEYS}
+        jax_map = float(z["jax_int8_map"])
+    with np.load(ASSET) as z:
+        images = z["images"]
+
+    t0 = time.perf_counter()
+    pred = sanity.sanity_predictor(ASSET, int8=True, device=DEVICE)
+    cal_s = time.perf_counter() - t0
+    got_scales = _scales(pred.detector.model)
+    if set(got_scales) != set(jax_scales) or len(jax_scales) != 39:
+        raise AssertionError("calibrated scale keys differ from JAX's")
+    rel = {k: abs(got_scales[k] / jax_scales[k] - 1) for k in jax_scales}
+    worst = max(rel, key=rel.get)
+
+    nms_cuda.launches = 0
+    result = sanity.evaluate_predictor(pred)
+    launches = nms_cuda.launches
+    port_map = float(result["mAP"])
+
+    cfg, state = load_npz_artifact(ASSET)
+    state.update({k: torch.tensor(v) for k, v in jax_scales.items()})
+    on_jax = Predictor(int8_config(cfg), state, device=DEVICE)
+    got = on_jax.predict(images)
+    matched, total = set_match(got, jax_det)
+    emit({"phase": "int8_sanity", "images": len(images),
+          "calibration_s": cal_s, "scales": len(got_scales),
+          "scale_max_rel_diff": rel[worst], "scale_max_rel_diff_at": worst,
+          "backbone_scales_at_6_over_127": sum(
+              v == float(np.float32(6) / np.float32(127))
+              for k, v in got_scales.items() if k.startswith("backbone.")),
+          "map": port_map, "jax_cpu_map": jax_map,
+          "map_diff": port_map - jax_map, "map_bar": SANITY_MAP_BAR,
+          "ap50": result["AP50"], "nms_launches": launches,
+          "jax_scales_matched": matched, "jax_scales_total": total,
+          "jax_scales_match_share": matched / max(total, 1),
+          "note": "int8 on " + power_line})
+    if launches < 4:
+        raise AssertionError("int8 sanity did not run the NMS kernel")
+    if abs(port_map - jax_map) > SANITY_MAP_BAR:
+        raise AssertionError(f"int8 mAP {port_map} vs JAX {jax_map}")
+    return launches
+
+
+def int_mm_limits() -> dict:
+    """Which shapes ``torch._int_mm`` takes on the card, unpadded: each
+    probe's error, or None. ``int_mm`` pads every product to M > 16 and K,
+    N multiples of 8; this records what the limits are."""
+    out = {}
+    for m, k, n, layout in ((16, 64, 64, "b col-major"),
+                            (17, 64, 64, "b col-major"),
+                            (32, 60, 64, "b col-major"),
+                            (32, 64, 36, "b col-major"),
+                            (32, 64, 64, "b row-major")):
+        a = torch.ones(m, k, dtype=torch.int8, device=DEVICE)
+        b = torch.ones(n, k, dtype=torch.int8, device=DEVICE)
+        b = b.t() if layout == "b col-major" else b.t().contiguous()
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            out[f"{m}x{k}x{n} {layout}"] = None
+        except RuntimeError as e:  # a refused shape: recorded, not used
+            out[f"{m}x{k}x{n} {layout}"] = str(e).splitlines()[0][:120]
+    return out
+
+
+def phase_gemm_exact(power_line: str) -> None:
+    """The flagship's P3 class ``predict`` product at b32 on the card and on
+    the CPU, on the same s8 input and weights: s32 and bf16 equal."""
+    cfg = Config.load(FLAGSHIP)
+    k_out = cfg.anchors.num_anchors_per_cell * cfg.num_classes  # 720
+    c, (h, w) = cfg.model.fpn_channels, cfg.feature_map_sizes()[0]
+    gen = torch.Generator().manual_seed(7)
+    x_q = torch.randint(-127, 128, (32, h, w, c), dtype=torch.int8,
+                        generator=gen)
+    weight = torch.randn(k_out, c, 3, 3, generator=gen) * 0.01
+    bias = torch.full((k_out,), FLAGSHIP_CLASS_BIAS)
+    a_scale = torch.tensor(0.05)
+    k_q, k_scale = quantize_weight(weight)
+    scale = a_scale * k_scale
+
+    t0 = time.perf_counter()
+    y_cpu = conv_int8(x_q, k_q, 1)
+    cpu_s = time.perf_counter() - t0
+    cols = im2col(x_q, 3, 1).reshape(-1, 9 * c)[:2048]
+    w2d = k_q.permute(0, 2, 3, 1).reshape(k_out, 9 * c)
+    if not torch.equal(y_cpu.reshape(-1, k_out)[:2048],
+                       cols.int() @ w2d.int().t()):
+        raise AssertionError("the CPU's int8 GEMM is not exact here")
+    out_cpu = dequantize(y_cpu, scale, bias)
+
+    x_d, k_d = x_q.to(DEVICE), k_q.to(DEVICE)
+    with torch.inference_mode():
+        y_dev = conv_int8(x_d, k_d, 1)
+        out_dev = dequantize(y_dev, scale.to(DEVICE), bias.to(DEVICE))
+        cols_d = im2col(x_d, 3, 1).reshape(-1, 9 * c)
+        w_d = w2d.to(DEVICE)
+        gemm_ms = cuda_ms(lambda: int_mm(cols_d, w_d), iters=10)
+    torch.cuda.synchronize()
+    s32_diff = int((y_dev.cpu() != y_cpu).sum())
+    bf16_diff = int((out_dev.cpu() != out_cpu).sum())
+    m, kk = cols_d.shape
+    ops = 2 * m * kk * k_out
+    emit({"phase": "gemm_exact", "M": m, "K": kk, "N": k_out,
+          "s32_elements": y_cpu.numel(), "s32_differ": s32_diff,
+          "bf16_differ": bf16_diff, "cpu_s": cpu_s,
+          "gemm_ms": gemm_ms, "gemm_tops": ops / gemm_ms / 1e9,
+          "gemm_bound_ms": max(ops / INT8_TENSOR_OP_PER_S,
+                               (m * kk + kk * k_out + 4 * m * k_out)
+                               / HBM_BYTES_PER_S) * 1e3,
+          "int_mm_unpadded": int_mm_limits(),
+          "note": "on " + power_line})
+    if s32_diff or bf16_diff:
+        raise AssertionError(f"int8 GEMM differs from the CPU's: {s32_diff} "
+                             f"s32, {bf16_diff} bf16 elements")
 
 
 def _check_output(out: dict, n: int, max_boxes: int) -> None:
@@ -298,16 +460,120 @@ def _check_output(out: dict, n: int, max_boxes: int) -> None:
     assert (out["boxes"] >= 0).all() and (out["boxes"] <= 1).all()
 
 
-def phase_serve(phase: str, config: str, power_line: str) -> int:
-    """A full-width bf16 config served through ``Predictor.predict``: 10
-    batches of 32, a mixed-size list and a letterboxed request, with the NMS
-    launches of that run counted; returns them."""
+def calibrate_flagship(pred: Predictor, cfg: Config) -> dict:
+    """Calibrates ``pred`` on one seeded batch of 8 (absmax); a second copy
+    of the model takes the 99.9 percentile of the same batch, whose largest
+    conv input (ds3's, 8 x 128 x 160 x 160) is past 2^24 values."""
+    h, w = cfg.image_hw()
+    batch = np.random.default_rng(8).integers(0, 256, (8, h, w, 3),
+                                              dtype=np.uint8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calibrate(pred.detector, [batch])
+    torch.cuda.synchronize()
+    absmax_s = time.perf_counter() - t0
+    state = pred.detector.model.state_dict()
+    pct = Detector(cfg, {k: v for k, v in state.items() if not is_scale(k)},
+                   device=DEVICE)
+    t0 = time.perf_counter()
+    calibrate(pct, [batch], percentile=99.9)
+    torch.cuda.synchronize()
+    pct_s = time.perf_counter() - t0
+    absmax, p999 = _scales(pred.detector.model), _scales(pct.model)
+    ratio = [p999[k] / absmax[k] for k in absmax]
+    if set(p999) != set(absmax) or max(ratio) > 1.0:
+        raise AssertionError("percentile scales exceed absmax's")
+    return {"calibration": {
+        "batch": 8, "scales": len(absmax), "absmax_s": absmax_s,
+        "percentile_99.9_s": pct_s,
+        "largest_conv_input": batch.shape[0] * pct.model.backbone.ds3
+        .pointwise.conv.weight.shape[1] * (h // 4) * (w // 4),
+        "percentile_over_absmax_min": min(ratio),
+        "percentile_over_absmax_median": float(np.median(ratio))}}
+
+
+def int8_checks(pred: Predictor, cfg: Config, batches: list,
+                feed: torch.Tensor, power_line: str) -> dict:
+    """The int8 serve beside the bf16 model of the same weights (batches in
+    turns, same process), its two feeds' raw maps, and the P3 class
+    ``predict`` conv's parts."""
+    det = pred.detector
+    state = {k: v for k, v in det.model.state_dict().items()
+             if not is_scale(k)}
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16", int8_neck=False))
+    p16 = Predictor(cfg16, state, device=DEVICE)
+    p16.warmup(32)
+    times = {"int8": [], "bfloat16": []}
+    for i in range(10):
+        for name, p in (("int8", pred), ("bfloat16", p16)):
+            t0 = time.perf_counter()
+            p.predict(batches[i % len(batches)])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    with torch.inference_mode():
+        raw_u8 = torch.from_numpy(batches[0]).to(DEVICE)
+        packed_maps, raw_maps = det.model(feed), det.model(raw_u8)
+        feeds_equal = all(torch.equal(a, b) for pa, pb in zip(
+            packed_maps, raw_maps) for a, b in zip(pa, pb))
+        fwd = {"int8": cuda_ms(lambda: det.model(feed), iters=5),
+               "bfloat16": cuda_ms(lambda: p16.detector.model(feed), iters=5)}
+        del packed_maps, raw_maps
+
+        conv = det.model.head.class_net.predict
+        fh, fw = cfg.feature_map_sizes()[0]
+        x = torch.randn(32, conv.weight.shape[1], fh, fw, device=DEVICE,
+                        dtype=torch.bfloat16).contiguous(
+                            memory_format=torch.channels_last)
+        a_scale = conv.act_scale(x)
+        x_q = quantize_activation(x, a_scale)
+        k_q, k_scale = quantize_weight(conv.weight)
+        cols = im2col(x_q, 3, 1)
+        cols2d = cols.reshape(-1, cols.shape[-1])
+        w2d = k_q.permute(0, 2, 3, 1).reshape(k_q.shape[0], -1)
+        y = int_mm(cols2d, w2d)
+        scale = a_scale * k_scale
+        w16 = conv.weight.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        parts = {
+            "quantize": cuda_ms(lambda: quantize_activation(x, a_scale), 10),
+            "weights": cuda_ms(lambda: quantize_weight(conv.weight), 10),
+            "im2col": cuda_ms(lambda: im2col(x_q, 3, 1), 10),
+            "gemm": cuda_ms(lambda: int_mm(cols2d, w2d), 10),
+            "dequantize": cuda_ms(lambda: dequantize(y, scale, conv.bias), 10),
+            "whole": cuda_ms(lambda: conv(x), 10),
+            "bf16_conv2d": cuda_ms(lambda: torch.nn.functional.conv2d(
+                x, w16, conv.bias.to(torch.bfloat16), padding=1), 10)}
+    if not feeds_equal:
+        raise AssertionError("int8 packed and raw feeds' maps differ")
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    return {"in_turns_with_bf16": {
+                "batch_ms": times, "p50_batch_ms": p50,
+                "img_per_s": {k: 32 / v * 1e3 for k, v in p50.items()},
+                "model_device_ms": fwd, "note": "same weights, batches in "
+                "turns, one process, on " + power_line},
+            "packed_raw_maps_bit_equal": feeds_equal,
+            "p3_class_predict_ms": parts,
+            "p3_class_predict_shape": {"M": cols2d.shape[0],
+                                       "K": cols2d.shape[1],
+                                       "N": w2d.shape[0]}}
+
+
+def phase_serve(phase: str, config: str, power_line: str,
+                int8: bool = False) -> int:
+    """A full-width config served through ``Predictor.predict``: 10 batches
+    of 32, a mixed-size list and a letterboxed request, with the NMS
+    launches of that run counted; returns them. ``int8``: the config in
+    int8 with ``int8_neck``, calibrated first (``calibrate_flagship``),
+    with ``int8_checks`` after."""
     cfg = Config.load(config)
     assert cfg.model.compute_dtype == "bfloat16"
+    if int8:
+        cfg = int8_config(cfg)
     pred = Predictor(cfg, None, device=DEVICE)  # weights seeded from 0
     with torch.no_grad():
         pred.detector.model.head.class_net.predict.bias.fill_(
             FLAGSHIP_CLASS_BIAS)
+    extra = calibrate_flagship(pred, cfg) if int8 else {}
     rng = np.random.default_rng(1)
     h, w = cfg.image_hw()
     batches = [rng.integers(0, 256, (32, h, w, 3), dtype=np.uint8)
@@ -373,11 +639,14 @@ def phase_serve(phase: str, config: str, power_line: str) -> int:
         post = cuda_ms(lambda: nms_cuda.batched_nms_cuda(
             boxes, scores, cfg.nms), iters=5)
 
+    if int8:
+        extra.update(int8_checks(pred, cfg, batches, feed, power_line))
     p50 = float(np.median(batch_ms))
     emit({"phase": phase, "config": os.path.relpath(config, ROOT),
           "stem_schedule": cfg.model.stem_schedule,
           "feed": "packed s8" if pred._packed else "raw uint8",
-          "dtype": "bfloat16", "batch": 32, "image": [h, w],
+          "dtype": cfg.model.compute_dtype,
+          "int8_neck": cfg.model.int8_neck, "batch": 32, "image": [h, w],
           "anchors": cfg.num_anchors(), "weights": "seeded (seed 0)",
           "class_bias": FLAGSHIP_CLASS_BIAS,
           "live_problems": live, "problems": 32 * cfg.num_classes,
@@ -388,7 +657,7 @@ def phase_serve(phase: str, config: str, power_line: str) -> int:
           "img_per_s": 32 / p50 * 1e3,
           "device_ms": {"model": fwd, "select": sel, "nms": post},
           "host_ms": {"feed": feed_ms, "to_device": h2d_ms},
-          "peak_mem_gib": peak_gb,
+          "peak_mem_gib": peak_gb, **extra,
           "note": "unoptimised eager bring-up reading on " + power_line})
     return launches
 
@@ -887,7 +1156,11 @@ def main() -> int:
 
     main_nms = phase_nms()
     phase_sanity()
+    nms_launches_int8_sanity = phase_int8_sanity(power_line)
+    phase_gemm_exact(power_line)
     nms_launches = phase_serve("flagship", FLAGSHIP, power_line)
+    nms_launches_int8 = phase_serve("int8_flagship", FLAGSHIP, power_line,
+                                    int8=True)
     nms_launches_reference = phase_serve("reference_serve", REFERENCE,
                                          power_line)
     phase_reference_golden()
@@ -899,7 +1172,12 @@ def main() -> int:
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",
         "replaces": "ssd_tpu/ops/nms_pallas.py:78",
-        "launches": nms_launches + nms_launches_reference,
+        "launches": (nms_launches + nms_launches_int8
+                     + nms_launches_reference + nms_launches_int8_sanity),
+        "launches_by_path": {
+            "flagship": nms_launches, "int8_flagship": nms_launches_int8,
+            "reference_serve": nms_launches_reference,
+            "int8_sanity": nms_launches_int8_sanity},
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
         "timing": main_nms["timing"], "call_ms": main_nms["call_ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],

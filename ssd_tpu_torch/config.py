@@ -65,7 +65,10 @@ class ModelConfig:
     head_depth: int = 4  # number of 3x3 convs in each subnet
     head_channels: int = 0  # 0 -> same as fpn_channels
     head_final_kernel: int = 3  # the port builds 3 only
-    # Conv compute dtype: bfloat16 | float32 (int8 is not ported yet).
+    # Conv compute dtype: bfloat16 | float32 | int8. int8 is an inference
+    # lowering of the same weights: the backbone's dense convs run int8 on
+    # static ReLU6 scales; with ``int8_neck`` the FPN and head too, on
+    # calibrated scales (``ssd_tpu_torch/quant.py``). Training runs bf16.
     compute_dtype: str = "bfloat16"
     int8_neck: bool = False
     norm: str = "batch"  # the port builds "batch" only

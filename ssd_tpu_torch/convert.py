@@ -9,7 +9,11 @@ module paths one to one (``params/backbone/ds3/depthwise/conv/kernel`` ->
   kernel ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)`` by the same transpose;
 * batch norm ``scale``/``bias`` -> ``weight``/``bias``, and
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
-* conv ``bias`` -> ``bias``.
+* conv ``bias`` -> ``bias``;
+* the ``quant`` collection's calibrated int8 activation scales, one to one
+  by path: ``quant/head/class_net/conv0/act_scale_16x16`` ->
+  ``head.class_net.conv0.act_scale_16x16``, the scale of that conv for a
+  16x16 input (``models/layers.QuantConv``).
 
 A JAX ``TrainState`` maps by its ``params`` and ``batch_stats``
 (``convert_variables({"params": s.params, "batch_stats": s.batch_stats},
@@ -18,7 +22,10 @@ cfg)``), and a gradient tree, shaped like ``params``, by
 
 The input is plain nested dicts of numpy arrays (``jax.device_get`` of a
 restored tree), so this module needs no JAX. Any leaf left unused, and any
-port parameter left unfilled, raises.
+port parameter left unfilled, raises. For an int8 config the scales
+expected are those a calibration at the config's image size records; they
+must all be filled when the tree has a ``quant`` collection or the config
+has ``int8_neck``, and are absent otherwise (the backbone's static scales).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.models.detector import SSDModel
+from ssd_tpu_torch.models.layers import SCALE_PREFIX, calibrating
 
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
@@ -56,21 +64,50 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 
 def _module(target):
     if isinstance(target, Config):
-        with torch.device("meta"):
-            return SSDModel(target)
+        with torch.device("meta"), torch.no_grad():
+            model = SSDModel(target).to("meta")  # numpy-made buffers too
+            if target.model.compute_dtype == "int8":
+                # the scales a calibration at this image size records
+                images = torch.empty(1, *target.image_hw(), 3,
+                                     dtype=torch.uint8)
+                with calibrating(model):
+                    model.eval()(images)
+        return model
     return target
 
 
+def scale_name(path: str) -> str:
+    """A ``quant`` collection path -> the state-dict name of that scale:
+    ``quant/head/class_net/conv0/act_scale_16x16`` ->
+    ``head.class_net.conv0.act_scale_16x16``."""
+    parts = path.split("/")
+    if parts[0] != "quant" or not parts[-1].startswith(SCALE_PREFIX):
+        raise ValueError(f"not a calibrated scale's path: {path!r}")
+    return ".".join(parts[1:])
+
+
+def is_scale(name: str) -> bool:
+    """Whether a state-dict name is a calibrated activation scale."""
+    return name.rsplit(".", 1)[-1].startswith(SCALE_PREFIX)
+
+
 def expected_state(target) -> dict[str, tuple]:
-    """Name -> shape of every tensor ``target`` loads: a module, or a Config
-    (the full model for that config, built without memory)."""
+    """Name -> shape of every tensor ``target`` loads: a module (with the
+    scales it holds), or a Config (the full model for that config, built
+    without memory, with the scales a calibration records)."""
     return {k: tuple(v.shape) for k, v in _module(target).state_dict().items()}
 
 
 def convert_variables(variables: dict, target) -> dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) -> state dict (f32) for ``target``,
     a Config (the full model) or any module of the port."""
-    return _convert(variables, expected_state(target))
+    want = expected_state(target)
+    need_scales = "quant" in variables or (
+        isinstance(target, Config) and target.model.int8_neck
+        and target.model.compute_dtype == "int8")
+    if not need_scales:
+        want = {k: v for k, v in want.items() if not is_scale(k)}
+    return _convert(variables, want)
 
 
 def convert_params(params: dict, target) -> dict[str, torch.Tensor]:
@@ -84,11 +121,13 @@ def convert_params(params: dict, target) -> dict[str, torch.Tensor]:
 def _convert(variables: dict, want: dict[str, tuple]) -> dict[str, torch.Tensor]:
     state, unused = {}, []
     for path, value in _flatten(variables).items():
-        leaf = _LEAF_NAMES.get((path[0], path[-1]))
-        if leaf is None:
+        if path[0] == "quant" and path[-1].startswith(SCALE_PREFIX):
+            name = scale_name("/".join(path))
+        elif (path[0], path[-1]) in _LEAF_NAMES:
+            name = ".".join(path[1:-1] + (_LEAF_NAMES[path[0], path[-1]],))
+        else:
             unused.append("/".join(path))
             continue
-        name = ".".join(path[1:-1] + (leaf,))
         if value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         if name not in want or tuple(value.shape) != want[name]:
@@ -105,8 +144,15 @@ def _convert(variables: dict, want: dict[str, tuple]) -> dict[str, torch.Tensor]
 
 def save_npz_artifact(path: str, cfg: Config, state: dict,
                       **extra: np.ndarray) -> None:
-    """One compressed ``.npz``: the state dict, the config text, and any
-    ``extra`` arrays under their own names."""
+    """One compressed ``.npz``: the state dict (calibrated scales included),
+    the config text, and any ``extra`` arrays under their own names. An
+    ``int8_neck`` config without scales raises: it could not serve."""
+    if (cfg.model.compute_dtype == "int8" and cfg.model.int8_neck
+            and not any(is_scale(k) for k in state)):
+        raise ValueError(
+            "cfg.model.int8_neck is set but the state carries no calibrated "
+            "scales (the JAX package's 'quant' collection): calibrate first "
+            "(ssd_tpu_torch.quant.calibrate or python -m ssd_tpu_torch.quant)")
     arrays = {_STATE_PREFIX + k: v.detach().cpu().numpy()
               for k, v in state.items()}
     clash = set(extra) & (set(arrays) | {_CONFIG_KEY})

@@ -10,6 +10,12 @@ holds the model and the anchors on a device and runs
 * ``predict``: the model in eval mode, cell-major candidate selection and
   class-wise hard NMS, returning the public contract ``Detections(boxes,
   scores, labels, num_boxes)``.
+
+``compute_dtype="int8"`` is an inference lowering of the same weights: the
+backbone's dense convs run int8 on static ReLU6 scales, and with
+``int8_neck`` the FPN and head too, on calibrated scales (``quant.py``)
+that the state dict carries beside the weights. Without ``int8_neck`` the
+FPN and head run bf16.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.constants import MEAN_RGB, STD_RGB
 from ssd_tpu_torch.device import resolve_device
 from ssd_tpu_torch.models.fpn import FPN, RetinaHead, flatten_levels
-from ssd_tpu_torch.models.layers import (BatchNorm, Conv, compute_dtype,
-                                         space_to_depth)
+from ssd_tpu_torch.models.layers import (BatchNorm, Conv, QuantConv,
+                                         compute_dtype, space_to_depth)
 from ssd_tpu_torch.models.mobilenet import FoldedS2DConv, MobileNetV1
 from ssd_tpu_torch.ops import losses
 from ssd_tpu_torch.ops.anchors import generate_anchors
@@ -54,7 +60,7 @@ def check_supported(cfg: Config) -> None:
         (m.stem_schedule not in ("dense4", "reference"),
          f"model.stem_schedule={m.stem_schedule!r}"),
         (m.norm != "batch", f"model.norm={m.norm!r}"),
-        (m.compute_dtype not in ("bfloat16", "float32"),
+        (m.compute_dtype not in ("bfloat16", "float32", "int8"),
          f"model.compute_dtype={m.compute_dtype!r}"),
         (m.head_final_kernel != 3,
          f"model.head_final_kernel={m.head_final_kernel}"),
@@ -83,16 +89,21 @@ class SSDModel(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         m = cfg.model
+        int8 = m.compute_dtype == "int8"
         self.backbone = MobileNetV1(m.width_multiplier, m.stem_schedule,
                                     stem_fold_normalize=True,
                                     bn_momentum=m.bn_momentum,
                                     stem_stride=1 if m.stem_space_to_depth
-                                    else 2)
-        self.fpn = FPN(self.backbone.out_channels, m.fpn_channels)
+                                    else 2, int8=int8)
+        neck = int8 and m.int8_neck
+        self.fpn = FPN(self.backbone.out_channels, m.fpn_channels, neck)
         self.head = RetinaHead(
             m.fpn_channels, cfg.num_classes, cfg.anchors.num_anchors_per_cell,
             m.head_depth, m.head_channels or m.fpn_channels,
-            m.head_final_kernel)
+            m.head_final_kernel, neck)
+        for name, mod in self.named_modules():
+            if isinstance(mod, QuantConv):
+                mod.path = name
 
     def backbone_input(self, images: torch.Tensor,
                        raw_input: bool = True) -> torch.Tensor:

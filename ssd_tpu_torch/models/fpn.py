@@ -8,6 +8,11 @@ K*4)), ...]``, channel ``k*C + c``; ``flatten_levels`` concatenates them
 into the flat ``(N, A, C)``/``(N, A, 4)`` outputs. The JAX package's
 inference-only fusion barriers have no counterpart in eager PyTorch, so
 train and eval run the same code here.
+
+With ``quant`` (int8 with ``int8_neck``) every FPN conv and every subnet
+conv is a ``QuantConv`` that requires a calibrated scale: their inputs are
+unbounded sums. The subnets are shared across levels, so they hold one
+scale per level, keyed by input shape.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssd_tpu_torch.constants import CLASS_PRIOR
-from ssd_tpu_torch.models.layers import Conv, ConvBN
+from ssd_tpu_torch.models.layers import Conv, ConvBN, QuantConv
 
 
 def upsample_nearest(x: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
@@ -36,17 +41,21 @@ def upsample_nearest(x: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tenso
 class FPN(nn.Module):
     """Builds P3..P7 from backbone ``{c3, c4, c5}``."""
 
-    def __init__(self, in_channels: tuple[int, int, int], channels: int = 128):
+    def __init__(self, in_channels: tuple[int, int, int], channels: int = 128,
+                 quant: bool = False):
         super().__init__()
         c3_ch, c4_ch, c5_ch = in_channels
-        lat = lambda i: ConvBN(i, channels, 1, use_norm=False, act=None)  # noqa: E731
-        smooth = lambda: ConvBN(channels, channels, 3, use_norm=False,  # noqa: E731
-                                act=None)
+
+        def conv(i: int, k: int, stride: int = 1) -> ConvBN:
+            return ConvBN(i, channels, k, stride, use_norm=False, act=None,
+                          quant=quant, require_scale=True)
+
         self.lateral3, self.lateral4, self.lateral5 = (
-            lat(c3_ch), lat(c4_ch), lat(c5_ch))
-        self.smooth3, self.smooth4, self.smooth5 = smooth(), smooth(), smooth()
-        self.p6 = ConvBN(c5_ch, channels, 3, 2, use_norm=False, act=None)
-        self.p7 = ConvBN(channels, channels, 3, 2, use_norm=False, act=None)
+            conv(c3_ch, 1), conv(c4_ch, 1), conv(c5_ch, 1))
+        self.smooth3, self.smooth4, self.smooth5 = (
+            conv(channels, 3), conv(channels, 3), conv(channels, 3))
+        self.p6 = conv(c5_ch, 3, 2)
+        self.p7 = conv(channels, 3, 2)
 
     def forward(self, feats: dict) -> list:
         c3, c4, c5 = feats["c3"], feats["c4"], feats["c5"]
@@ -64,14 +73,19 @@ class Subnet(nn.Module):
 
     def __init__(self, depth: int, in_ch: int, channels: int,
                  out_channels: int, final_kernel: int = 3,
-                 final_bias_init: float = 0.0):
+                 final_bias_init: float = 0.0, quant: bool = False):
         super().__init__()
         self.depth = depth
         self.final_bias_init = final_bias_init
+
+        def conv(i: int, o: int, k: int) -> Conv:
+            return QuantConv(i, o, k, require_scale=True) if quant else Conv(
+                i, o, k)
+
         for i in range(depth):
-            self.add_module(f"conv{i}", Conv(in_ch if i == 0 else channels,
+            self.add_module(f"conv{i}", conv(in_ch if i == 0 else channels,
                                              channels, 3))
-        self.predict = Conv(channels if depth else in_ch, out_channels,
+        self.predict = conv(channels if depth else in_ch, out_channels,
                             final_kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,13 +98,16 @@ class RetinaHead(nn.Module):
     """Class + box subnets over all levels -> per-level NHWC raw maps."""
 
     def __init__(self, in_ch: int, num_classes: int, anchors_per_cell: int,
-                 depth: int = 4, channels: int = 128, final_kernel: int = 3):
+                 depth: int = 4, channels: int = 128, final_kernel: int = 3,
+                 quant: bool = False):
         super().__init__()
         k = anchors_per_cell
         self.class_net = Subnet(
             depth, in_ch, channels, k * num_classes, final_kernel,
-            final_bias_init=-math.log((1.0 - CLASS_PRIOR) / CLASS_PRIOR))
-        self.box_net = Subnet(depth, in_ch, channels, k * 4, final_kernel)
+            final_bias_init=-math.log((1.0 - CLASS_PRIOR) / CLASS_PRIOR),
+            quant=quant)
+        self.box_net = Subnet(depth, in_ch, channels, k * 4, final_kernel,
+                              quant=quant)
 
     def forward(self, pyramid: list) -> list:
         return [(self.class_net(p).permute(0, 2, 3, 1),

@@ -1,31 +1,45 @@
 """Shared building blocks: SAME-padded conv, batch norm (flax's semantics in
-train and eval mode), ConvBN, and the MobileNet-v1 depthwise-separable
-block.
+train and eval mode), ConvBN, the MobileNet-v1 depthwise-separable block,
+and the int8 inference conv ``QuantConv`` with its calibration mode.
 
 Layout is NCHW inside the model. Parameters live in f32; each conv casts its
 weight to the activation's dtype (bf16 or f32) when it runs, as flax does
 with ``param_dtype=float32`` and ``dtype=compute_dtype``. Module and
 parameter names follow the flax tree (``conv``, ``bn``, ``depthwise``,
 ``pointwise``), so ``convert.py`` maps one to the other by path.
+
+int8 (``compute_dtype="int8"``, inference only): every dense conv runs
+s8 x s8 -> s32 through ``torch._int_mm`` (cuBLASLt's integer GEMM on the
+card) over an im2col of the quantized NHWC input, then dequantizes in f32;
+depthwise convs, norms and activations run in bf16. Integer sums are exact
+in any order, so the s32 products equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+from fractions import Fraction
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_EPSILON, BATCH_NORM_MOMENTUM
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# int8 computes norms, activations and depthwise convs in bf16; its dense
+# convs take the quantized path (``QuantConv``).
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int8": torch.bfloat16}
 
 
 def compute_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise NotImplementedError(
-            f"compute_dtype={name!r}: the port builds bfloat16 and float32")
+            f"compute_dtype={name!r}: the port builds bfloat16, float32 "
+            "and int8")
     return DTYPES[name]
 
 
@@ -68,7 +82,12 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[-1]
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv(x, self.weight.to(x.dtype), bias)
+
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor | None) -> torch.Tensor:
+        k = weight.shape[-1]
         ph = same_pad(x.shape[-2], k, self.stride)
         pw = same_pad(x.shape[-1], k, self.stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -76,9 +95,7 @@ class Conv(nn.Module):
         else:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             padding = 0
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        padding, 1, self.groups)
+        return F.conv2d(x, weight, bias, self.stride, padding, 1, self.groups)
 
     def reset_parameters(self, generator: torch.Generator,
                          std: float | None = None,
@@ -138,19 +155,290 @@ class BatchNorm(nn.Module):
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
+# ---------------------------------------------------------------- int8
+
+INT8_MAX = 127.0
+# f32(1 / 127): the JAX package divides by the constant 127, and XLA
+# compiles every division by a constant into a multiply by its f32
+# reciprocal, which is what its jitted programs (serving, calibration)
+# compute; division by a scale that is a variable stays a division.
+INT8_RECIP = float(np.float32(1.0) / np.float32(INT8_MAX))
+SCALE_FLOOR = 1e-8  # both scales' floor (an all-zero input or channel)
+SCALE_PREFIX = "act_scale_"
+
+
+def scale_key(x: torch.Tensor) -> str:
+    """The activation scale's key for an NCHW input: ``act_scale_{H}x{W}``
+    (the JAX package's name for its NHWC input of the same size)."""
+    return f"{SCALE_PREFIX}{x.shape[-2]}x{x.shape[-1]}"
+
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of an OIHW f32 kernel -> ``(k_q s8
+    of w's shape, k_scale (O,) f32)``: ``k_scale = max(absmax / 127,
+    1e-8)`` (as ``absmax * f32(1/127)``), ``k_q = clip(round(w / k_scale),
+    -127, 127)``."""
+    absmax = w.abs().amax(dim=(1, 2, 3))
+    k_scale = torch.clamp_min(absmax * INT8_RECIP, SCALE_FLOOR)
+    k_q = torch.round(w / k_scale.view(-1, 1, 1, 1))
+    return torch.clamp(k_q, -INT8_MAX, INT8_MAX).to(torch.int8), k_scale
+
+
+def quantize_activation(x: torch.Tensor, a_scale: torch.Tensor,
+                        reciprocal: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """NCHW float -> NHWC s8: ``clip(round(x / a_scale), -127, 127)``,
+    rounded half to even (as ``jnp.round``). ``a_scale`` is a tensor on
+    ``x``'s device, so the quotient is a division (a CUDA tensor over a CPU
+    scalar would be multiplied by its reciprocal). With ``reciprocal``,
+    ``round(x * reciprocal)``: the JAX package's static scale is a
+    constant, whose division XLA compiles into that multiply."""
+    xf = x.permute(0, 2, 3, 1).float()
+    xq = torch.round(xf / a_scale if reciprocal is None else xf * reciprocal)
+    return torch.clamp(xq, -INT8_MAX, INT8_MAX).to(torch.int8).contiguous()
+
+
+def im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """NHWC ``(N, H, W, C)`` -> ``(N, Ho, Wo, k*k*C)``: the ``k x k`` taps of
+    each SAME-padded output gathered along channels in ``(dy, dx, c)``
+    order. A 1x1 stride-1 conv needs none: ``x`` comes back as it is.
+    (``F.unfold`` has no int8 kernel.)"""
+    if kernel == 1 and stride == 1:
+        return x
+    _, h, w, _ = x.shape
+    ph, pw = same_pad(h, kernel, stride), same_pad(w, kernel, stride)
+    ho, wo = -(-h // stride), -(-w // stride)
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    taps = [xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+               dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(kernel) for dx in range(kernel)]
+    return torch.cat(taps, dim=-1)
+
+
+def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a (M, K) @ w (N, K).T``, s8 x s8 -> s32, exact, by
+    ``torch._int_mm`` (cuBLASLt's integer GEMM on the card). Its CUDA shape
+    limits (M > 16, K and N multiples of 8) are met by zero padding, on
+    every device, and the padding is sliced off: zero rows, columns and
+    depth add no products."""
+    m, k = a.shape
+    n = w.shape[0]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (np_, kp) != (n, k):
+        w = F.pad(w, (0, kp - k, 0, np_ - n))
+    return torch._int_mm(a, w.t())[:m, :n]
+
+
+def conv_int8(x_q: torch.Tensor, k_q: torch.Tensor,
+              stride: int) -> torch.Tensor:
+    """SAME conv of the s8 NHWC input with the s8 OIHW kernel -> s32 NHWC,
+    one product over the im2col."""
+    o, c, k, _ = k_q.shape
+    cols = im2col(x_q, k, stride)
+    n, ho, wo, _ = cols.shape
+    w = k_q.permute(0, 2, 3, 1).reshape(o, k * k * c)
+    return int_mm(cols.reshape(-1, k * k * c), w).reshape(n, ho, wo, o)
+
+
+def dequantize(y: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """s32 -> bf16 in the JAX package's order: ``y_f32 * scale`` (``scale``
+    the product ``a_scale * k_scale``, formed first), ``+ bias`` in f32,
+    one rounding."""
+    y = y.float() * scale
+    if bias is not None:
+        y = y + bias
+    return y.to(torch.bfloat16)
+
+
+def _fma_f32(a, b, c) -> np.float32:
+    """``a * b + c`` rounded once to f32, to nearest even."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(exact))
+    near = (r, np.nextafter(r, np.float32(-np.inf)),
+            np.nextafter(r, np.float32(np.inf)))
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                    int(v.view(np.int32)) & 1))
+
+
+def percentile(x: torch.Tensor, p: float) -> torch.Tensor:
+    """``jnp.percentile(x, p)`` (linear) over all of ``x`` as the JAX
+    package's calibration computes it on the CPU (``p`` a constant of the
+    jitted program), bit for bit, as a 0-dim f32 tensor on ``x``'s device:
+
+    * JAX's f32 index arithmetic: ``q = p / 100``, ``idx = q * (n - 1)``,
+      ``n`` cast to f32, so above 2^24 elements the index rounds as there;
+      the weights ``idx - floor(idx)`` and ``1 - that``;
+    * the two order statistics by ``kthvalue``, for any size
+      (``torch.quantile`` refuses more than 2^24 elements);
+    * ``low * w_low + high * w_high`` with the first product and the sum
+      rounded once: XLA:CPU contracts that multiply-add into an FMA.
+    """
+    flat = x.reshape(-1).float()
+    f32 = np.float32
+    n = f32(flat.numel())
+    idx = (f32(p) / f32(100.0)) * (n - f32(1.0))
+    low, high = np.floor(idx), np.ceil(idx)
+    high_w = idx - low
+    low_w = f32(1.0) - high_w
+    last = flat.numel() - 1  # n - 1 in f32 can round past it: XLA's gather
+
+    def at(i) -> float:  # clamps its index into range
+        k = min(int(min(max(i, f32(0.0)), n - 1)), last)
+        return torch.kthvalue(flat, k + 1).values.item()
+
+    low_v, high_v = at(low), at(high)
+    out = _fma_f32(low_v, low_w, f32(high_v) * high_w)
+    return torch.tensor(out, device=x.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """A calibration pass: each ``QuantConv`` records ``max|x| / 127``
+    (``percentile=None``) or ``percentile(|x|, p) / 127`` of its input."""
+
+    percentile: float | None = None
+
+
+@contextlib.contextmanager
+def calibrating(model: nn.Module, percentile: float | None = None):
+    """Every ``QuantConv`` of ``model`` in calibration mode for the block:
+    it runs the plain bf16 conv and max-accumulates its observed input
+    scale into its shape-keyed scale (seeded at 0), so scales only widen
+    across batches and calls. No scale is created outside this mode."""
+    convs = [m for m in model.modules() if isinstance(m, QuantConv)]
+    if not convs:
+        raise ValueError("the model has no quantized convs: is "
+                         "model.compute_dtype 'int8'?")
+    mode = Calibration(percentile)
+    for m in convs:
+        m.calibration = mode
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.calibration = None
+
+
+class QuantConv(Conv):
+    """int8 x int8 -> int32 SAME conv with per-output-channel weight scales
+    (``ssd_tpu/models/layers.py`` ``QuantConv``). Same parameters as
+    ``Conv``, so bf16-trained weights load unchanged.
+
+    The activation scale, in this order: a calibrated scale for this input
+    shape (a 0-dim f32 buffer ``act_scale_{H}x{W}``, floored at 1e-8), one
+    per pyramid level for the shared head subnets; else, with
+    ``require_scale`` (an input that is an unbounded sum), a ValueError;
+    else the static ``act_range / 127``. Calibrated scales are state: they
+    load from and save to the state dict under the conv's path.
+
+    In train mode the float conv runs (int8 is an inference lowering); in
+    calibration mode (``calibrating``) the plain bf16 conv runs, the bias
+    added in bf16.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 bias: bool = True, act_range: float = 6.0,
+                 require_scale: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride, bias=bias)
+        self.require_scale = require_scale
+        self.calibration: Calibration | None = None
+        self.path = ""  # the module's name in the model, for errors
+        static = np.float32(act_range / INT8_MAX)
+        self.register_buffer("static_scale", torch.tensor(static),
+                             persistent=False)
+        self.register_buffer("static_reciprocal",
+                             torch.tensor(np.float32(1.0) / static),
+                             persistent=False)
+
+    def act_scale(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The calibrated activation scale for input ``x`` (0-dim f32, on
+        its device); ``None``: the static scale serves."""
+        scale = self._buffers.get(scale_key(x))
+        if scale is not None:
+            return torch.clamp_min(scale, SCALE_FLOOR)
+        if self.require_scale:
+            raise ValueError(
+                f"int8 conv {self.path!r} needs a calibrated activation "
+                f"scale for input {x.shape[-2]}x{x.shape[-1]} (its input is "
+                "an unbounded sum; the static ReLU6 bound does not apply). "
+                "Calibrate the artifact at this image size: python -m "
+                "ssd_tpu_torch.quant (see ssd_tpu_torch/quant.py).")
+        return None
+
+    def product(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> ``(y s32 NHWC, a_scale * k_scale (O,) f32)``: the integer
+        product and its dequantization scale."""
+        a_scale = self.act_scale(x)
+        if a_scale is None:
+            a_scale = self.static_scale
+            x_q = quantize_activation(x, a_scale, self.static_reciprocal)
+        else:
+            x_q = quantize_activation(x, a_scale)
+        k_q, k_scale = quantize_weight(self.weight)
+        return conv_int8(x_q, k_q, self.stride), a_scale * k_scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        if self.calibration is not None:
+            return self._calibrate(x)
+        y, scale = self.product(x)
+        return dequantize(y, scale, self.bias).permute(0, 3, 1, 2)
+
+    def _calibrate(self, x: torch.Tensor) -> torch.Tensor:
+        ax = x.float().abs()
+        p = self.calibration.percentile
+        observed = (ax.amax() if p is None else percentile(ax, p)) * INT8_RECIP
+        key = scale_key(x)
+        old = self._buffers.get(key)
+        self.register_buffer(
+            key, observed if old is None else torch.maximum(old, observed))
+        bf16 = torch.bfloat16
+        y = self._conv(x.to(bf16), self.weight.to(bf16), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(bf16).view(-1, 1, 1)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args) -> None:
+        # the scales in the state dict replace this conv's own: they are
+        # not fixed parameters, so they are taken, never missing
+        for key in [k for k in self._buffers if k.startswith(SCALE_PREFIX)]:
+            del self._buffers[key]
+        mine = {k: v for k, v in state_dict.items()
+                if k.startswith(prefix + SCALE_PREFIX)
+                and "." not in k[len(prefix):]}
+        rest = {k: v for k, v in state_dict.items() if k not in mine}
+        super()._load_from_state_dict(rest, prefix, *args)
+        for k, v in mine.items():
+            self.register_buffer(k[len(prefix):], v.detach().to(
+                self.weight.device, torch.float32).reshape(()).clone())
+
+
 class ConvBN(nn.Module):
     """Conv, then batch norm (or the conv's own bias), then an activation.
 
-    ``act``: ``"relu6"`` | ``"relu"`` | ``None``.
+    ``act``: ``"relu6"`` | ``"relu"`` | ``None``. ``quant``: a dense
+    (``groups == 1``) conv is a ``QuantConv`` (int8 inference) with this
+    ``act_range`` and ``require_scale``; a depthwise one stays ``Conv``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, groups: int = 1, use_norm: bool = True,
                  act: str | None = "relu6",
-                 bn_momentum: float = BATCH_NORM_MOMENTUM):
+                 bn_momentum: float = BATCH_NORM_MOMENTUM,
+                 quant: bool = False, act_range: float = 6.0,
+                 require_scale: bool = False):
         super().__init__()
-        self.conv = Conv(in_ch, out_ch, kernel, stride, groups,
-                         bias=not use_norm)
+        if quant and groups == 1:
+            self.conv = QuantConv(in_ch, out_ch, kernel, stride,
+                                  bias=not use_norm, act_range=act_range,
+                                  require_scale=require_scale)
+        else:
+            self.conv = Conv(in_ch, out_ch, kernel, stride, groups,
+                             bias=not use_norm)
         self.bn = BatchNorm(out_ch, momentum=bn_momentum) if use_norm else None
         self.act = act
 
@@ -172,14 +460,18 @@ def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:
 
 
 class DepthwiseSeparable(nn.Module):
-    """MobileNet-v1 block: depthwise 3x3 + pointwise 1x1, each BN + ReLU6."""
+    """MobileNet-v1 block: depthwise 3x3 + pointwise 1x1, each BN + ReLU6;
+    with ``quant`` the pointwise conv is int8 (static ReLU6 scale unless
+    calibrated)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
-                 bn_momentum: float = BATCH_NORM_MOMENTUM):
+                 bn_momentum: float = BATCH_NORM_MOMENTUM,
+                 quant: bool = False):
         super().__init__()
         self.depthwise = ConvBN(in_ch, in_ch, 3, stride, groups=in_ch,
                                 bn_momentum=bn_momentum)
-        self.pointwise = ConvBN(in_ch, out_ch, 1, bn_momentum=bn_momentum)
+        self.pointwise = ConvBN(in_ch, out_ch, 1, bn_momentum=bn_momentum,
+                                quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))

@@ -10,7 +10,12 @@ schedules reach stride 4, then ds3-ds13 follow the MobileNet-v1 table:
   ``ops/fused_early_cuda.py`` fuses ds1 and ds2 into one kernel.
 * ``dense4``: the stem packs the image space-to-depth(4) to ``(H/4, W/4,
   48)`` and runs one dense 3x3 conv to ``w(128)`` channels at stride 4, with
-  the ImageNet normalize affine folded into that conv (``FoldedS2DConv``).
+  the ImageNet normalize affine folded into that conv (``FoldedS2DConv``;
+  in int8 ``Int8FoldedS2DConv``, from the exact s8 pixels).
+
+With ``int8`` every pointwise conv, and the reference schedule's stem, is a
+``QuantConv`` on the static ReLU6 (stem: normalized-image) bound unless
+calibrated.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_MOMENTUM, MEAN_RGB, STD_RGB
 from ssd_tpu_torch.models.layers import (BatchNorm, ConvBN,
-                                         DepthwiseSeparable, activation)
+                                         DepthwiseSeparable, activation,
+                                         conv_int8, quantize_weight,
+                                         space_to_depth)
 
 
 def _width(ch: int, multiplier: float) -> int:
@@ -119,13 +126,67 @@ class FoldedS2DConv(nn.Module):
         return (y - corr).to(dtype)
 
 
+class Int8FoldedS2DConv(FoldedS2DConv):
+    """The int8 lowering of the folded dense4 stem conv
+    (``ssd_tpu/models/mobilenet.py`` ``_Int8FoldedS2DConv``), in eval mode.
+
+    uint8 pixels are int8-exact after a -128 shift, so the stem quantizes
+    no activation: the raw image becomes ``(u8 XOR 0x80)`` as s8 (exactly
+    ``u8 - 128``), packed space-to-depth(4); the packed s8 feed is that
+    already, bit for bit. The STD fold goes into the per-output-channel
+    weight scales (``wp = w / std48``, computed as ``w * f32(1 / std48)``,
+    quantized), the 3x3 SAME product is s8 x s8 -> s32, times ``k_scale``;
+    the mean term is the border correction of ``128 - mean`` taken from the
+    dequantized weights ``k_q * k_scale``, added in f32, then one rounding
+    to bf16:
+
+        conv((x - mean) / std, w) = conv(x - 128, wp)
+                                    + border_sum((128 - mean) * wp)
+
+    The correction's f32 conv is the one sum here whose order can differ
+    from the JAX package's. Train mode runs the bf16 fold (``FoldedS2DConv``).
+    Output ``(N, F, H/4, W/4)`` bf16, channels-last in memory.
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, fold_normalize=True)
+        # f32(1 / std): the JAX package divides by the constant STD, which
+        # XLA compiles into a multiply by its f32 reciprocal
+        self.register_buffer("inv_std48", torch.from_numpy(
+            np.float32(1.0) / np.tile(STD_RGB, 16)), persistent=False)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.training:
+            return super().forward(x, dtype)
+        if x.dtype == torch.uint8:  # (N, H, W, 3) raw pixels
+            xs = space_to_depth((x ^ 0x80).view(torch.int8), 4)
+        elif x.dtype == torch.int8:  # (N, H/4, W/4, 48) packed feed
+            xs = x.contiguous()
+        else:
+            raise ValueError(f"the int8 stem takes uint8 pixels or the "
+                             f"packed s8 feed, got {x.dtype}")
+        wp = self.weight * self.inv_std48.view(1, 48, 1, 1)
+        k_q, k_scale = quantize_weight(wp)
+        y = conv_int8(xs, k_q, 1).float() * k_scale
+        corr = _border_correction(k_q.float() * k_scale.view(-1, 1, 1, 1),
+                                  xs.shape[1], xs.shape[2],
+                                  128.0 - self.mean48)
+        return (y + corr.permute(0, 2, 3, 1)).to(torch.bfloat16).permute(
+            0, 3, 1, 2)
+
+
 class Dense4Stem(nn.Module):
     """dense4 early schedule: image -> (N, features, H/4, W/4), BN + ReLU6."""
 
     def __init__(self, features: int, fold_normalize: bool = False,
-                 bn_momentum: float = BATCH_NORM_MOMENTUM):
+                 bn_momentum: float = BATCH_NORM_MOMENTUM,
+                 int8: bool = False):
         super().__init__()
-        self.conv = FoldedS2DConv(features, fold_normalize)
+        if int8 and not fold_normalize:
+            raise NotImplementedError(
+                "the int8 dense4 stem takes raw pixels (fold_normalize)")
+        self.conv = (Int8FoldedS2DConv(features) if int8
+                     else FoldedS2DConv(features, fold_normalize))
         self.bn = BatchNorm(features, momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -138,25 +199,29 @@ class MobileNetV1(nn.Module):
     ``reference``: the images are normalized floats, ``(N, H, W, 3)`` with
     ``stem_stride=2`` or space-to-depth(2)-packed ``(N, H/2, W/2, 12)`` with
     ``stem_stride=1``; they are cast to ``dtype`` first. ``dense4``: raw
-    uint8 images or the packed s8 feed (``Dense4Stem``).
+    uint8 images or the packed s8 feed (``Dense4Stem``). ``int8``: the
+    dense convs are quantized (module docstring).
     """
 
     def __init__(self, width_multiplier: float = 1.0,
                  stem_schedule: str = "dense4",
                  stem_fold_normalize: bool = False,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 stem_stride: int = 2):
+                 stem_stride: int = 2, int8: bool = False):
         super().__init__()
         w = lambda ch: _width(ch, width_multiplier)  # noqa: E731
         self.stem_schedule = stem_schedule
         if stem_schedule == "dense4":
             self.stem = Dense4Stem(w(128), stem_fold_normalize,
-                                   bn_momentum)  # /4
+                                   bn_momentum, int8)  # /4
         elif stem_schedule == "reference":
+            # act_range 3: the stem's input is the normalized image
             self.stem = ConvBN(3 if stem_stride == 2 else 12, w(32), 3,
-                               stem_stride, bn_momentum=bn_momentum)  # /2
-            self.ds1 = DepthwiseSeparable(w(32), w(64), 1, bn_momentum)
-            self.ds2 = DepthwiseSeparable(w(64), w(128), 2, bn_momentum)  # /4
+                               stem_stride, bn_momentum=bn_momentum,
+                               quant=int8, act_range=3.0)  # /2
+            self.ds1 = DepthwiseSeparable(w(32), w(64), 1, bn_momentum, int8)
+            self.ds2 = DepthwiseSeparable(w(64), w(128), 2, bn_momentum,
+                                          int8)  # /4
         else:
             raise ValueError(f"unknown stem_schedule {stem_schedule!r}")
         table = [("ds3", 128, 1), ("ds4", 256, 2), ("ds5", 256, 1),
@@ -165,7 +230,7 @@ class MobileNetV1(nn.Module):
         in_ch = w(128)
         for name, ch, stride in table:
             self.add_module(name, DepthwiseSeparable(in_ch, w(ch), stride,
-                                                     bn_momentum))
+                                                     bn_momentum, int8))
             in_ch = w(ch)
         self.out_channels = (w(256), w(512), w(1024))
 

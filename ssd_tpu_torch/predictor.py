@@ -7,7 +7,10 @@
 Host-side resize to the model resolution (bilinear, uint8 in and out),
 power-of-two batch buckets, and the feed: for dense4 configs the packed s8
 feed (the host packs the batch space-to-depth(4) and the stem consumes it
-as is), otherwise the raw uint8 batch, normalized on the card.
+as is), otherwise the raw uint8 batch, normalized on the card. int8
+artifacts serve the same way, their calibrated scales loaded with the
+weights; a resolution they were not calibrated at raises at the first
+request (``models/layers.QuantConv``).
 Boxes are normalized ``(ymin, xmin, ymax, xmax)``; with ``preserve_aspect``
 they are mapped back from the letterbox canvas to the original frame.
 """

@@ -1,0 +1,134 @@
+"""Post-training int8 quantization: calibration and artifact conversion
+(the port's ``ssd_tpu/quant.py``).
+
+The scheme (``models/layers.QuantConv``): the f32 weights are unchanged and
+quantize per output channel when a conv runs; activations quantize per
+tensor, on the static ReLU6 bound in the backbone and on calibrated scales
+in the FPN and head, whose inputs are unbounded sums. A scale is keyed by
+the conv's input shape, so the shared head subnets hold one per pyramid
+level. Depthwise convs, norms, activations and postprocess stay bf16/f32.
+
+Calibration is a few forward passes in calibration mode
+(``layers.calibrating``): every ``QuantConv`` runs the plain bf16 conv and
+max-accumulates ``max|x| / 127`` (or the ``percentile`` of ``|x|``, per
+batch) into its scale. The backbone's convs record theirs too, so a
+calibrated model serves its backbone on calibrated scales as well.
+
+    python -m ssd_tpu_torch.quant --npz model.npz --output model_int8.npz \\
+        --images a.jpg b.jpg ... [--batch-size 8] [--batches 8] \\
+        [--percentile 99.9] [--backbone-only] [--device cpu]
+
+Calibration from tfrecords (``--data``) waits for the port's input pipeline.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from ssd_tpu_torch.convert import load_npz_artifact, save_npz_artifact
+from ssd_tpu_torch.models.detector import Detector
+from ssd_tpu_torch.models.layers import calibrating
+
+
+def calibrate(det: Detector, batches, percentile: float | None = None) -> int:
+    """Observe activation ranges over ``batches`` (uint8 ``(N, H, W, 3)`` at
+    the model's image size) and fold them into ``det``'s scales; returns
+    the number of images seen. Scales only widen, across batches and
+    calls: calibrating again, on other data, refreshes by ``max``.
+
+    ``percentile``: ``None`` clips at the observed absmax; a float (say
+    99.9) at that percentile of ``|x|`` in each batch, trading the extreme
+    tail for a finer grid on the bulk.
+    """
+    seen = 0
+    model = det.model.eval()
+    with torch.no_grad(), calibrating(model, percentile):
+        for images in batches:
+            images = det.as_input(images)
+            model(images)
+            seen += images.shape[0]
+    if not seen:
+        raise ValueError("calibrate() got no batches")
+    return seen
+
+
+def int8_config(cfg, int8_neck: bool = True):
+    """``cfg`` with ``compute_dtype="int8"`` and ``int8_neck``."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="int8", int8_neck=int8_neck))
+
+
+def quantize_artifact(npz_in: str, npz_out: str, batches,
+                      int8_neck: bool = True,
+                      percentile: float | None = None, device=None) -> dict:
+    """bf16/f32 ``.npz`` artifact -> int8 artifact; returns its state.
+
+    With ``int8_neck`` the model is calibrated on ``batches`` (on
+    ``device``, ``None``: the card). Without, it is a pure config flip: the
+    backbone's static scales need no state, and the artifact carries none.
+    """
+    cfg, state = load_npz_artifact(npz_in)
+    qcfg = int8_config(cfg, int8_neck)
+    seen = 0
+    if int8_neck:
+        det = Detector(qcfg, state, device=device)
+        seen = calibrate(det, batches, percentile)
+        state = {k: v.cpu() for k, v in det.model.state_dict().items()}
+    save_npz_artifact(npz_out, qcfg, state)
+    print(f"calibrated on {seen} images -> {npz_out}")
+    return state
+
+
+def batches_from_images(paths: list[str], image_hw, batch_size: int,
+                        max_batches: int | None = None):
+    """Image files -> uint8 batches at ``image_hw``, resized by PIL as the
+    JAX package's CLI does; a short last batch repeats its final image."""
+    from PIL import Image
+
+    ih, iw = image_hw
+    imgs = [np.asarray(Image.open(p).convert("RGB").resize((iw, ih)),
+                       np.uint8) for p in paths]
+    for n, i in enumerate(range(0, len(imgs), batch_size)):
+        if max_batches is not None and n >= max_batches:
+            break
+        chunk = imgs[i:i + batch_size]
+        chunk += [chunk[-1]] * (batch_size - len(chunk))
+        yield np.stack(chunk)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--npz", required=True,
+                   help="source .npz artifact (bf16/f32)")
+    p.add_argument("--output", required=True,
+                   help="destination .npz for the int8 artifact")
+    p.add_argument("--images", nargs="*", default=[],
+                   help="image files for calibration")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--batches", type=int, default=8,
+                   help="at most this many calibration batches")
+    p.add_argument("--backbone-only", action="store_true",
+                   help="quantize only the backbone (calibration-free "
+                        "static ReLU6 scales; FPN/head stay bf16)")
+    p.add_argument("--percentile", type=float, default=None,
+                   help="clip calibration at this percentile of |x| per "
+                        "batch instead of absmax (e.g. 99.9)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card)")
+    args = p.parse_args(argv)
+    if not args.images and not args.backbone_only:
+        p.error("calibration needs --images (or pass --backbone-only)")
+    cfg, _ = load_npz_artifact(args.npz)
+    batches = batches_from_images(args.images, cfg.image_hw(),
+                                  args.batch_size, args.batches)
+    quantize_artifact(args.npz, args.output, batches,
+                      int8_neck=not args.backbone_only,
+                      percentile=args.percentile, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
