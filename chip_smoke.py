@@ -91,6 +91,7 @@ time of back-to-back eager calls of the wrapper, its host work included
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -99,6 +100,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -106,7 +109,8 @@ import torch
 from ssd_tpu_torch import _build
 from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
 from ssd_tpu_torch.convert import is_scale, load_npz_artifact, scale_name
-from ssd_tpu_torch.data import synthetic
+from ssd_tpu_torch.data import native, synthetic
+from ssd_tpu_torch.data.resize import resize as plain_resize
 from ssd_tpu_torch.eval import sanity
 from ssd_tpu_torch.models.detector import Detector, normalize_images
 from ssd_tpu_torch.models.fpn import flatten_levels
@@ -114,13 +118,17 @@ from ssd_tpu_torch.models.layers import (conv_int8, dequantize, im2col,
                                          int_mm, quantize_activation,
                                          quantize_weight)
 from ssd_tpu_torch.ops import (box_utils, fused_early, fused_early_cuda,
-                               losses, matching, matching_cuda, nms, nms_cuda)
+                               ingest, losses, matching, matching_cuda, nms,
+                               nms_cuda)
 from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.postprocess import select_candidates_cells
 from ssd_tpu_torch.ops.targets import create_targets
-from ssd_tpu_torch.predictor import Predictor
+from ssd_tpu_torch.predictor import (Predictor, detection_rows,
+                                     detections_arrays)
 from ssd_tpu_torch.quant import calibrate, int8_config
-from ssd_tpu_torch.tools import bench_fused_early, kernel_cases
+from ssd_tpu_torch.serve import DetectionServer
+from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
+                                 kernel_cases)
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
 from ssd_tpu_torch.train import EXPORT_NAME, train
@@ -134,6 +142,8 @@ ASSET = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_v1.npz")
 GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets", "golden_cells_v1.npz")
 TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
 INT8_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_int8_v1.npz")
+SERVE_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
+                            "serve_golden_v1.npz")
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
@@ -262,10 +272,11 @@ def phase_nms() -> dict:
 
 # ------------------------------------------------------------------ models
 
-def set_match(got: dict, want: dict, score_tol: float = 1e-3) -> tuple[int, int]:
+def set_match(got: dict, want: dict, score_tol: float = 1e-3,
+              box_tol: float = 1e-2) -> tuple[int, int]:
     """(matched, total) wanted detections under the golden rule: same label,
-    score within ``score_tol`` (1e-3), box within 1e-2, each got detection
-    used once."""
+    score within ``score_tol`` (1e-3), box within ``box_tol`` (1e-2), each
+    got detection used once."""
     matched = total = 0
     for i in range(len(want["num_boxes"])):
         nb_w, nb_g = int(want["num_boxes"][i]), int(got["num_boxes"][i])
@@ -278,7 +289,7 @@ def set_match(got: dict, want: dict, score_tol: float = 1e-3) -> tuple[int, int]
                         and abs(got["scores"][i, q]
                                 - want["scores"][i, j]) < score_tol
                         and np.abs(got["boxes"][i, q]
-                                   - want["boxes"][i, j]).max() < 1e-2):
+                                   - want["boxes"][i, j]).max() < box_tol):
                     used.add(q)
                     matched += 1
                     break
@@ -641,6 +652,7 @@ def phase_serve(phase: str, config: str, power_line: str,
 
     if int8:
         extra.update(int8_checks(pred, cfg, batches, feed, power_line))
+    extra["host_attribution"] = host_attribution(pred, batches[0])
     p50 = float(np.median(batch_ms))
     emit({"phase": phase, "config": os.path.relpath(config, ROOT),
           "stem_schedule": cfg.model.stem_schedule,
@@ -693,6 +705,379 @@ def phase_reference_golden() -> None:
           "num_boxes_equal": nb_equal, "matched": matched, "total": total})
     if matched != total or not nb_equal or total == 0:
         raise AssertionError(f"golden detections differ: {matched}/{total}")
+
+
+# ------------------------------------------------------------------ serving host path
+
+SPANS = ("feed", "copy", "launch", "readback")
+
+
+def host_attribution(pred: Predictor, batch: np.ndarray) -> dict:
+    """One warm ``predict`` of ``batch`` under ``torch.profiler``: the host
+    time of each of its spans (feed: resize and pack into the staging
+    buffer; copy: the host-to-device copy issued; launch: the model,
+    postprocess and the readback copies enqueued; readback: the wait on the
+    batch's event and the numpy views), the rest of the call's wall time,
+    the host time inside CUDA runtime calls by name, and the count and
+    device time of its kernels and copies, and each stream or device
+    synchronization with the ops it ran under. Fails if one ran under the
+    dispatch's spans (a host copy to the card from pageable memory, a
+    scalar read back): dispatch would wait for the card."""
+    pred.predict(batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pred.predict(batch)
+        wall = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = dict.fromkeys(SPANS, 0.0)
+    runtime = collections.Counter()
+    calls = collections.Counter()
+    syncs = []
+    device = 0.0
+    kernels = 0
+    for e in prof.events():
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        # a span is also mirrored on the device timeline as an annotation
+        if e.device_type == cpu and e.name.startswith("predict."):
+            spans[e.name.split(".", 1)[1]] += ms
+        elif e.device_type == cpu and e.name.startswith("cuda"):
+            runtime[e.name] += ms  # cudaLaunchKernel, cudaMemcpyAsync, ...
+            calls[e.name] += 1
+            if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+                chain, parent = [], e.cpu_parent
+                while parent is not None and len(chain) < 6:
+                    chain.append(parent.name)
+                    parent = parent.cpu_parent
+                syncs.append({"call": e.name, "ms": ms, "thread": e.thread,
+                              "under": chain})
+        elif e.device_type == cuda and not e.is_user_annotation:
+            device += ms  # kernels and copies, one stream
+            kernels += 1
+    if not all(spans.values()):
+        raise AssertionError(f"profiler spans missing: {spans}")
+    # dispatch must return without waiting for the card: the only wait of a
+    # predict is collect's, on its readback event
+    stalls = [x for x in syncs if any(
+        f"predict.{k}" in x["under"] for k in ("feed", "copy", "launch"))]
+    if stalls:
+        raise AssertionError(f"predict_dispatch waited for the card: {stalls}")
+    return {"wall_ms": wall, "host_ms": spans, "syncs": syncs,
+            "host_other_ms": wall - sum(spans.values()),
+            "cuda_runtime_calls_ms": sum(runtime.values()),
+            "cuda_runtime_top": {k: {"ms": v, "calls": calls[k]}
+                                 for k, v in runtime.most_common(4)},
+            "device_ops": kernels,
+            "device_busy_ms": device,
+            "device_idle_share": max(0.0, 1.0 - device / wall),
+            "profiler_saw_device": device > 0}
+
+
+def _best_ms(fn, reps: int = 3) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def phase_host_ingest(power_line: str) -> None:
+    """The native host library on this machine: built with the host
+    compiler, its pack bit-equal to the numpy version on the flagship's
+    b32/640 batch, its resize within one unit of the numpy version on a
+    mixed-size set, both timed beside the numpy versions; which JPEG
+    decoders exist, and their decode time on the 640 px request bodies."""
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    cfg = Config.load(FLAGSHIP)
+    h, w = cfg.image_hw()
+    images = np.random.default_rng(1).integers(0, 256, (32, h, w, 3),
+                                               dtype=np.uint8)
+    want = ingest.pack_s2d(images)
+    got = native.pack_s2d(images)
+    if not np.array_equal(got, want):
+        raise AssertionError("native pack_s2d differs from the numpy one")
+    threads = os.cpu_count() or 1
+    pack = {"numpy_ms": _best_ms(lambda: ingest.pack_s2d(images)),
+            "native_ms_4_threads": _best_ms(lambda: native.pack_s2d(
+                images, n_threads=4), 5),
+            f"native_ms_{threads}_threads": _best_ms(lambda: native.pack_s2d(
+                images, n_threads=threads), 5),
+            "bytes_in": images.nbytes, "bit_equal": True}
+    rng = np.random.default_rng(2)
+    resize = {"max_unit_diff": 0, "numpy_ms": 0.0, "native_ms": 0.0}
+    for hw in ((480, 640), (333, 517), (700, 1000), (1080, 1920), (640, 640),
+               (200, 300)):
+        im = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+        a = native.resize(im, h, w)
+        b = plain_resize(im, h, w)
+        resize["max_unit_diff"] = max(resize["max_unit_diff"], int(
+            np.abs(a.astype(np.int16) - b).max()))
+        resize["numpy_ms"] += _best_ms(lambda: plain_resize(im, h, w))
+        resize["native_ms"] += _best_ms(lambda: native.resize(im, h, w))
+    if resize["max_unit_diff"] > 1:
+        raise AssertionError(f"native resize off the numpy one by "
+                             f"{resize['max_unit_diff']}")
+    decoders = native.decoders()
+    decode = None
+    if decoders["native_libjpeg"] or decoders["pil"]:
+        bodies, source = bench_http.request_bodies(w)
+        decode = {"bodies": source, "images": len(bodies),
+                  "ms_per_image": _best_ms(lambda: [
+                      native.decode_jpeg(d, h, w) for d in bodies])
+                  / len(bodies),
+                  "path": "native libjpeg" if decoders["native_libjpeg"]
+                  else "PIL (DCT scale) + native resize"}
+    emit({"phase": "host_ingest", "build_s": build_s,
+          "compiler": _build.host_compiler(), "cpu_count": threads,
+          "pack_b32_640": pack, "resize_6_images_to_640": resize,
+          "decoders": decoders, "decode_640": decode,
+          "libjpeg_found": decoders["native_libjpeg"],
+          "note": "host times on the card's machine, " + power_line})
+
+
+def post_json(port: int, body: bytes) -> dict:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/detect?score_threshold=0", data=body,
+        method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+# the daemon's JSON rounds to 4 decimals: half a unit, and a little
+JSON_TOL = 1.01e-4
+
+
+def _equal_results(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_serve_golden() -> int:
+    """The sanity artifact in f32 served by ``DetectionServer`` on the card
+    (``assets/serve_golden_v1.npz``): decoded here, the 16 JPEGs against
+    the pixels JAX's native decode gave; over HTTP on 127.0.0.1 (or, with
+    no JPEG decoder on this machine, through the request queue with the
+    stored pixels) the daemon's detections against the port's direct
+    ``predict`` of the same pixels, and, where the pixels are equal, JAX's
+    stored detections under the golden rule; then with ``scan_depth=4``
+    the grouped results against per-batch predicts. Returns the NMS
+    launches of the daemon's runs."""
+    with np.load(SERVE_GOLDEN, allow_pickle=False) as z:
+        jpegs = bench_http.unpack_blobs(z["golden_jpeg_blob"],
+                                        z["golden_jpeg_offsets"])
+        stored = z["golden_pixels"]
+        stored_version = {k: int(z[k]) for k in (
+            "jpeg_lib_version", "libjpeg_turbo_version_number")}
+        want = {k: z[f"jax_f32_{k}"] for k in DET_KEYS}
+    cfg, state = load_npz_artifact(ASSET)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    pred = Predictor(cfg, state, device=DEVICE)
+    h, w = cfg.image_hw()
+    decoders = native.decoders()
+    http = bool(decoders["native_libjpeg"] or decoders["pil"])
+    srv = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=8,
+                          max_wait_ms=20.0, default_score_threshold=0.0)
+    srv.warmup()
+    srv.start()
+    try:
+        if http:
+            pixels = np.stack([native.decode_jpeg(d, h, w) for d in jpegs])
+            nms_cuda.launches = 0
+            with ThreadPoolExecutor(len(jpegs)) as ex:
+                rows = [r["detections"] for r in ex.map(
+                    lambda b: post_json(srv.port, b), jpegs)]
+        else:
+            emit({"phase": "serve_golden", "decoder": "none",
+                  "note": "this machine has no JPEG decoder (no libjpeg "
+                          "in the host library, no PIL): the daemon is "
+                          "driven through its request queue with the "
+                          "stored pixels, the path right after _decode; "
+                          "this is not HTTP"})
+            pixels = stored
+            nms_cuda.launches = 0
+            futs = [srv.submit(srv._prepare(p)) for p in pixels]
+            rows = [detection_rows(f.result(timeout=120), 0.0)
+                    for f in futs]
+        launches = nms_cuda.launches
+        batches = srv.stats.batches
+    finally:
+        srv.stop()
+    if launches != batches or batches >= len(jpegs):
+        raise AssertionError(f"{launches} NMS launches for {batches} daemon "
+                             f"batches of {len(jpegs)} requests")
+    pixels_equal = [bool(np.array_equal(a, b)) for a, b in zip(pixels, stored)]
+    got = detections_arrays(rows, cfg.nms.max_boxes)
+
+    # the port's direct predict of the same pixels, through the same JSON
+    out = pred.predict(pixels)
+    direct = detections_arrays([detection_rows(
+        {k: v[i] for k, v in out.items()}, 0.0)
+        for i in range(len(pixels))], cfg.nms.max_boxes)
+    m_direct, t_direct = set_match(got, direct, score_tol=JSON_TOL,
+                                   box_tol=JSON_TOL)
+    if (m_direct != t_direct or t_direct == 0
+            or not np.array_equal(got["num_boxes"], direct["num_boxes"])):
+        raise AssertionError(f"daemon vs direct predict: {m_direct}/"
+                             f"{t_direct}")
+    row = {"phase": "serve_golden", "images": len(jpegs),
+           "path": "HTTP on 127.0.0.1" if http
+           else "request queue (no JPEG decoder)",
+           "decoders": decoders, "stored_pixels_libjpeg": stored_version,
+           "pixels_equal_stored": sum(pixels_equal),
+           "daemon_batches": batches, "nms_launches": launches,
+           "daemon_vs_direct_matched": m_direct,
+           "daemon_vs_direct_total": t_direct}
+    if all(pixels_equal):
+        m, t = set_match(got, want)
+        nb_equal = bool(np.array_equal(got["num_boxes"], want["num_boxes"]))
+        row.update(jax_matched=m, jax_total=t, jax_num_boxes_equal=nb_equal)
+        if m != t or not nb_equal:
+            raise AssertionError(f"daemon vs JAX's stored detections: "
+                                 f"{m}/{t}")
+    else:
+        row["jax_check"] = ("skipped: this machine decodes "
+                            f"{len(jpegs) - sum(pixels_equal)} of the JPEGs "
+                            "to other pixels than the stored ones")
+
+    # grouped dispatch: 16 requests queued before the dispatcher starts form
+    # four batches of 4, grouped under one handle
+    srv4 = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=4,
+                           max_wait_ms=0.0, default_score_threshold=0.0,
+                           scan_depth=4)
+    srv4.warmup()
+    groups = []
+    dispatch_group = pred.predict_dispatch_group
+    pred.predict_dispatch_group = lambda b: (groups.append(len(b)),
+                                            dispatch_group(b))[1]
+    try:
+        futs = [srv4.submit(srv4._prepare(p)) for p in pixels]
+        nms_cuda.launches = 0
+        srv4.dispatcher.start()
+        grouped = [f.result(timeout=120) for f in futs]
+        launches4 = nms_cuda.launches
+    finally:
+        del pred.predict_dispatch_group
+        srv4.dispatcher.stop()
+        srv4.dispatcher.join(timeout=30)
+        srv4.httpd.server_close()
+    per_batch = [pred.predict(pixels[i:i + 4]) for i in range(0, 16, 4)]
+    equal = all(_equal_results(g, {k: v[i % 4] for k, v in
+                                   per_batch[i // 4].items()})
+                for i, g in enumerate(grouped))
+    row.update(scan_depth=4, groups=groups, group_nms_launches=launches4,
+               grouped_equal_per_batch=equal)
+    emit(row)
+    if groups != [4] or launches4 != 4 or not equal:
+        raise AssertionError(f"grouped dispatch: groups {groups}, "
+                             f"{launches4} launches, equal {equal}")
+    return launches + launches4
+
+
+def phase_serve_pipelined(power_line: str) -> int:
+    """The flagship at full width, bf16 then int8 (``int8_neck``, calibrated
+    by ``bench_serve.calibrate_seeded``), b32/640: 10 batches dispatched
+    two deep against serial ``predict`` of the same batches; the
+    ``bench_serve`` protocol (50 batches queued, collected once) with the
+    pinned staging copy and with pageable memory, in turns; ``bench_http``
+    with 64 clients x 20 requests and ``max_batch`` 32; the peak memory
+    with a ``scan_depth=4`` daemon's groups; one batch's host time by span
+    (``host_attribution``). Returns the NMS launches of the counted runs."""
+    base = Config.load(FLAGSHIP)
+    h, w = base.image_hw()
+    rng = np.random.default_rng(11)
+    batches = [rng.integers(0, 256, (32, h, w, 3), dtype=np.uint8)
+               for _ in range(4)]
+    bodies, source = bench_http.request_bodies(w)
+    total = 0
+    for dtype in ("bfloat16", "int8"):
+        cfg = int8_config(base) if dtype == "int8" else base
+        pred = Predictor(cfg, None, device=DEVICE)  # weights seeded from 0
+        with torch.no_grad():
+            pred.detector.model.head.class_net.predict.bias.fill_(
+                FLAGSHIP_CLASS_BIAS)
+        cal_s = bench_serve.calibrate_seeded(pred) if dtype == "int8" \
+            else None
+        pred.warmup(32)
+        serial = [pred.predict(b) for b in batches]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path, counted: pipelined, bench_serve, bench_http
+        nms_cuda.launches = 0
+        handles, piped = collections.deque(), []
+        for i in range(10):
+            handles.append(pred.predict_dispatch(batches[i % 4]))
+            if len(handles) == 2:
+                piped.append(pred.predict_collect(handles.popleft()))
+        piped += [pred.predict_collect(hd) for hd in handles]
+        launches_piped = nms_cuda.launches
+        mixed = [i for i, o in enumerate(piped)
+                 if not _equal_results(o, serial[i % 4])]
+        bench = []
+        for pinned in (True, False, False, True):
+            pred._pinned = pinned
+            r = bench_serve.run(pred, batches, iters=50, warmup=2)
+            bench.append({"copy": "pinned" if pinned else "pageable", **r})
+        pred._pinned = True
+        launches_bench = nms_cuda.launches - launches_piped
+        srv = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=32,
+                              max_wait_ms=5.0, default_score_threshold=0.3)
+        srv.warmup()
+        srv.start()
+        try:
+            before = nms_cuda.launches
+            http = bench_http.run(srv, bodies, 64, 20)
+            launches_http = nms_cuda.launches - before
+        finally:
+            srv.stop()
+        launches = nms_cuda.launches
+        srv4 = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=32,
+                               scan_depth=4)
+        srv4.warmup()  # groups of 2, 3 and 4 batches of 32
+        srv4.httpd.server_close()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        attribution = host_attribution(pred, batches[0])
+        total += launches
+
+        def summary(copy):
+            runs = [b for b in bench if b["copy"] == copy]
+            return {"img_per_s": [b["img_per_s"] for b in runs],
+                    "batch_ms_p50": [b["batch_ms"]["p50"] for b in runs],
+                    "batch_ms_p99": [b["batch_ms"]["p99"] for b in runs]}
+        emit({"phase": "serve_pipelined", "dtype": dtype,
+              "config": os.path.relpath(FLAGSHIP, ROOT), "batch": 32,
+              "image": [h, w], "calibration_s": cal_s,
+              "pipelined_batches": len(piped), "pipeline_depth": 2,
+              "pipelined_equal_serial": not mixed, "mixed_batches": mixed,
+              "nms_launches": {"pipelined": launches_piped,
+                               "bench_serve": launches_bench,
+                               "bench_http": launches_http},
+              "bench_serve": bench, "pinned": summary("pinned"),
+              "pageable": summary("pageable"),
+              "bench_http": {"bodies": source, **http},
+              "peak_mem_gib_with_scan_depth_4": peak_gib,
+              "host_attribution": attribution,
+              "note": "unoptimised eager bring-up reading on " + power_line})
+        if mixed:
+            raise AssertionError(f"pipelined batches {mixed} differ from "
+                                 "serial predict")
+        if launches_piped != 10 or launches_bench != 4 * 52:
+            raise AssertionError(f"NMS launches {launches_piped} pipelined, "
+                                 f"{launches_bench} in bench_serve")
+        if http["failed"] or launches_http != http["batches"]:
+            raise AssertionError(f"bench_http: {http['failed']} failed "
+                                 f"({http['first_failure']}), "
+                                 f"{launches_http} launches for "
+                                 f"{http['batches']} batches")
+        del pred, srv, srv4
+        torch.cuda.empty_cache()
+    return total
 
 
 # ------------------------------------------------------------------ fused early
@@ -1154,8 +1539,10 @@ def main() -> int:
           "built": built, "sources": _build.sources(),
           "ptxas": ptxas})
 
+    phase_host_ingest(power_line)
     main_nms = phase_nms()
     phase_sanity()
+    nms_launches_golden = phase_serve_golden()
     nms_launches_int8_sanity = phase_int8_sanity(power_line)
     phase_gemm_exact(power_line)
     nms_launches = phase_serve("flagship", FLAGSHIP, power_line)
@@ -1163,6 +1550,7 @@ def main() -> int:
                                     int8=True)
     nms_launches_reference = phase_serve("reference_serve", REFERENCE,
                                          power_line)
+    nms_launches_pipelined = phase_serve_pipelined(power_line)
     phase_reference_golden()
     main_early, early_launches = phase_fused_early(power_line)
     main_match = phase_match()
@@ -1173,11 +1561,14 @@ def main() -> int:
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",
         "replaces": "ssd_tpu/ops/nms_pallas.py:78",
         "launches": (nms_launches + nms_launches_int8
-                     + nms_launches_reference + nms_launches_int8_sanity),
+                     + nms_launches_reference + nms_launches_int8_sanity
+                     + nms_launches_golden + nms_launches_pipelined),
         "launches_by_path": {
             "flagship": nms_launches, "int8_flagship": nms_launches_int8,
             "reference_serve": nms_launches_reference,
-            "int8_sanity": nms_launches_int8_sanity},
+            "int8_sanity": nms_launches_int8_sanity,
+            "serve_golden": nms_launches_golden,
+            "serve_pipelined": nms_launches_pipelined},
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
         "timing": main_nms["timing"], "call_ms": main_nms["call_ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],

@@ -1,4 +1,4 @@
-"""Builds the CUDA sources under ``csrc/`` at first use and loads them.
+"""Builds the sources under ``csrc/`` at first use and loads them.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into ``_kernels/<name>-<hash>.so`` beside this file (the
@@ -8,8 +8,15 @@ unchanged one is reused; a source of the same name from another
 directory (``csrc_dir``) builds beside it without collision. ``build_all``
 starts one ``nvcc`` per source, all at once, and waits for them together.
 
+``csrc/loader.cc`` is host code, not a kernel: ``load_host`` builds it with
+the host compiler (``$CXX``, default ``g++``) and the JAX package's
+``native/Makefile`` flags into the same directory, keyed the same way. Its
+JPEG half is compiled and linked (``-DSSD_WITH_JPEG -ljpeg``) only where a
+probe finds ``jpeglib.h`` and libjpeg; without them the library still
+builds.
+
 Nothing here runs at import: this module imports on a machine without
-``nvcc`` or a GPU, and fails only when a kernel is asked for.
+``nvcc`` or a GPU, and fails only when a library is asked for.
 """
 
 from __future__ import annotations
@@ -33,6 +40,11 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
+
+# native/Makefile's CXXFLAGS; the libraries are linked after the source
+HOST_CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-march=native",
+                  "-Wall")
+JPEG_FLAGS = ("-DSSD_WITH_JPEG",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -141,6 +153,84 @@ def device_query(name: str, query: str, index: int,
             raise RuntimeError(f"ssd_{name}_{query} failed: CUDA error {rc}")
         value = _device_values[key] = out.value
     return value
+
+
+def host_compiler() -> str:
+    cxx = os.environ.get("CXX", "g++")
+    if shutil.which(cxx) is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found ($CXX): "
+                           "ssd_tpu_torch builds csrc/loader.cc at first use")
+    return cxx
+
+
+_JPEG_PROBE = """#include <cstdio>
+#include <jpeglib.h>
+extern "C" int ssd_probe() {
+  jpeg_error_mgr err;
+  jpeg_std_error(&err);
+  return JPEG_LIB_VERSION;
+}
+"""
+
+
+def _jpeg_found(cxx: str) -> bool:
+    """Whether ``jpeglib.h`` compiles and ``-ljpeg`` links here."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        src = os.path.join(tmp, "probe.cc")
+        with open(src, "w") as f:
+            f.write(_JPEG_PROBE)
+        proc = subprocess.run(
+            [cxx, "-shared", "-fPIC", "-o", os.path.join(tmp, "probe.so"),
+             src, "-ljpeg"], capture_output=True, timeout=120)
+        return proc.returncode == 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def host_command(name: str, out: str, cxx: str, jpeg: bool) -> list[str]:
+    """The compile-and-link command for ``csrc/<name>.cc``."""
+    flags = [*HOST_CXX_FLAGS, *(JPEG_FLAGS if jpeg else ())]
+    libs = ["-ljpeg", "-lpthread"] if jpeg else ["-lpthread"]
+    return [cxx, *flags, "-o", out, os.path.join(CSRC_DIR, f"{name}.cc"),
+            *libs]
+
+
+def host_target(name: str, cxx: str, jpeg: bool) -> str:
+    """Path of the host library built from ``csrc/<name>.cc``: keyed by the
+    source, the compiler and the flags (with or without the JPEG half)."""
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC_DIR, f"{name}.cc"), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(host_command(name, "", cxx, jpeg)).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cc``, built first if
+    needed; raises if it does not build."""
+    with _lock:
+        key = f"host:{name}"
+        if key not in _libs:
+            cxx = host_compiler()
+            jpeg = _jpeg_found(cxx)
+            out = host_target(name, cxx, jpeg)
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                proc = subprocess.run(host_command(name, tmp, cxx, jpeg),
+                                      capture_output=True, text=True,
+                                      timeout=300)
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(
+                        f"host library build failed: {name}.cc ({cxx} exit "
+                        f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, out)
+            _libs[key] = ctypes.CDLL(out)
+        return _libs[key]
 
 
 def ptxas_lines(log: str) -> list[str]:

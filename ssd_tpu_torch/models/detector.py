@@ -40,11 +40,16 @@ from ssd_tpu_torch.ops.postprocess import postprocess_cells
 from ssd_tpu_torch.ops.targets import create_targets
 
 
-def normalize_images(images: torch.Tensor) -> torch.Tensor:
+def normalize_images(images: torch.Tensor, mean: torch.Tensor | None = None,
+                     std: torch.Tensor | None = None) -> torch.Tensor:
     """uint8 NHWC -> ImageNet-normalized bf16 NHWC, computed in f32 and
-    rounded once (the JAX package's ``normalize_images``)."""
-    mean = torch.from_numpy(MEAN_RGB).to(images.device)
-    std = torch.from_numpy(STD_RGB).to(images.device)
+    rounded once (the JAX package's ``normalize_images``). ``mean`` and
+    ``std``: the RGB constants already on the images' device (a model's
+    buffers), so that no call copies them from the host, which would wait
+    for the stream."""
+    if mean is None:
+        mean = torch.from_numpy(MEAN_RGB).to(images.device)
+        std = torch.from_numpy(STD_RGB).to(images.device)
     return ((images.float() - mean) / std).to(torch.bfloat16)
 
 
@@ -104,6 +109,10 @@ class SSDModel(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, QuantConv):
                 mod.path = name
+        self.register_buffer("mean_rgb", torch.from_numpy(MEAN_RGB),
+                             persistent=False)
+        self.register_buffer("std_rgb", torch.from_numpy(STD_RGB),
+                             persistent=False)
 
     def backbone_input(self, images: torch.Tensor,
                        raw_input: bool = True) -> torch.Tensor:
@@ -117,7 +126,7 @@ class SSDModel(nn.Module):
                                  "it takes the raw image")
             return images
         if raw_input:
-            images = normalize_images(images)
+            images = normalize_images(images, self.mean_rgb, self.std_rgb)
         if m.stem_space_to_depth:
             images = space_to_depth(images, 2)
         return images

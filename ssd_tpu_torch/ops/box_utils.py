@@ -75,7 +75,7 @@ def decode(codes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     cya, cxa, ha, wa = to_center_form(anchors).unbind(-1)
     sy, sx, sh, sw = SCALE_FACTORS
     # Clamp the size terms so exp() cannot overflow for garbage logits.
-    ten = codes.new_tensor(10.0)
+    ten = codes.new_full((), 10.0)
     th = torch.minimum(th / sh, ten)
     tw = torch.minimum(tw / sw, ten)
     cy = ty / sy * ha + cya

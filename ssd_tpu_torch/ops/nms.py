@@ -55,7 +55,7 @@ def class_topk(scores: torch.Tensor, cfg: NMSConfig):
     k = min(cfg.pre_nms_top_k, scores.shape[1])
     scores_t = scores.transpose(1, 2)
     scores_t = torch.where(scores_t >= f32(cfg.score_threshold), scores_t,
-                           scores_t.new_tensor(-1.0))
+                           scores_t.new_full((), -1.0))
     top_scores, top_idx = topk_stable(scores_t, k)
     return top_scores.contiguous(), top_idx.to(torch.int32).contiguous()
 
@@ -93,7 +93,7 @@ def suppress(boxes: torch.Tensor, top_idx: torch.Tensor,
     top_boxes = torch.gather(boxes, 1, flat[..., None].expand(n, c * k, 4))
     keep = greedy_suppression_mask(top_boxes.reshape(n, c, k, 4),
                                    top_scores > 0.0, iou_threshold)
-    return torch.where(keep, top_scores, top_scores.new_tensor(-1.0))
+    return torch.where(keep, top_scores, top_scores.new_full((), -1.0))
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
@@ -136,11 +136,11 @@ def _merge_flat(gather_boxes, kept_scores: torch.Tensor,
 
     is_det = final_scores > 0.0
     num = is_det.sum(dim=1, dtype=torch.int32)
-    zero = final_scores.new_tensor(0.0)
+    zero = final_scores.new_full((), 0.0)
     final_boxes = torch.where(is_det[..., None], final_boxes, zero)
     final_scores = torch.where(is_det, final_scores, zero)
     final_labels = torch.where(is_det, final_labels,
-                               final_labels.new_tensor(-1))
+                               final_labels.new_full((), -1))
 
     if m < cfg.max_boxes:  # pad up to the contract size
         pad = cfg.max_boxes - m

@@ -53,7 +53,7 @@ def select_candidates_cells(raw_levels: list, anchors: torch.Tensor,
     cell_logit = torch.cat(cell_max, dim=1)  # (N, cells)
     total_cells = cell_logit.shape[1]
 
-    neg_inf = cell_logit.new_tensor(-math.inf)
+    neg_inf = cell_logit.new_full((), -math.inf)
     logit_thr = f32(math.log(cfg.score_threshold
                              / (1.0 - cfg.score_threshold)))
     cell_logit = torch.where(cell_logit >= logit_thr, cell_logit, neg_inf)
@@ -84,7 +84,10 @@ def select_candidates_cells(raw_levels: list, anchors: torch.Tensor,
     cand_logits = cand_cls.reshape(n, q, c)
     cand_deltas = cand_box.reshape(n, q, 4)
     cand_anchors = anchors.reshape(total_cells, k, 4)[cell_idx].reshape(n, q, 4)
-    anchor_live = torch.isfinite(top_logit).repeat_interleave(k, dim=1)
+    # each live cell's K anchors (expand, not repeat_interleave, whose
+    # output size may be read back from the card)
+    anchor_live = torch.isfinite(top_logit)[..., None].expand(
+        n, q_cells, k).reshape(n, q)
 
     if refine:
         rank = torch.where(anchor_live, cand_logits.amax(dim=-1), neg_inf)

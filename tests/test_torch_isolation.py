@@ -29,7 +29,8 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "optax", "orbax", "ssd_tpu")
     and sys.modules[m] is not None)
 assert not leaked, leaked
-for name in ("quant", "eval.coco_map", "eval.sanity"):
+for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
+             "tools.bench_serve", "tools.bench_http"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
