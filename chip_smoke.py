@@ -80,7 +80,24 @@ any failure raises:
    steps, with the matching launches of that run counted, the losses
    finite, one batch's kernel matches equal to the plain ones, and the
    exported ``.npz`` served by ``Predictor.from_npz``;
-9. the kernels line, then the card's ``nvidia-smi`` line, then the result.
+9. train_pipeline: the shipped flagship trained through the CLI
+   (``python -m ssd_tpu_torch.train`` in a subprocess) from tfrecords that
+   the port's ``create_tfrecords`` writes from seeded crowded scenes (256
+   train JPEGs of 480x640, 640x640 and 800x600 in 4 shards, 64 val, a
+   label map), at full width, batch 64, 24 steps in turns of 4 at 512,
+   640 and 768, mosaic, crop, flip, colour and EMA, evaluated at its last
+   step, one steady step profiled: no stream sync and no pageable upload
+   inside a step, K2 launched once a step and microbatch, the eval mAP
+   finite; the same command again resumes and stops; ``best.npz`` and
+   ``export.npz`` serve with K1 and the label map; a run warm-started from
+   that export and distilled from it copies every leaf and logs a finite
+   ``distill_loss``; the host pipeline on ``assets/train_golden_v1.npz``'s
+   shard gives JAX's stored batches (images bit-equal, or at most 1 unit
+   apart in examples whose colour jitter ran); the pipeline timed alone at
+   each scale with 8 workers; per-scale step p50, the wait for data, img/s
+   and peak memory;
+10. the kernels line, then the card's ``nvidia-smi`` line, then the
+    result.
 
 Times are CUDA-event times after warm-up, or host times around work that
 ends in a synchronise; they are from an unoptimised eager bring-up. K1's,
@@ -109,7 +126,7 @@ import torch
 from ssd_tpu_torch import _build
 from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
 from ssd_tpu_torch.convert import is_scale, load_npz_artifact, scale_name
-from ssd_tpu_torch.data import native, synthetic
+from ssd_tpu_torch.data import create_tfrecords, native, pipeline, synthetic
 from ssd_tpu_torch.data.resize import resize as plain_resize
 from ssd_tpu_torch.eval import sanity
 from ssd_tpu_torch.models.detector import Detector, normalize_images
@@ -131,9 +148,10 @@ from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
                                  kernel_cases)
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
-from ssd_tpu_torch.train import EXPORT_NAME, train
+from ssd_tpu_torch.train import EXPORT_NAME, PROFILE_START, evaluate, train
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
                                       make_train_step)
+from ssd_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "coco_mobilenet_640_flagship.json")
@@ -144,6 +162,10 @@ TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
 INT8_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_int8_v1.npz")
 SERVE_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
                             "serve_golden_v1.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
+                            "train_golden_v1.npz")
+EVAL_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
+                           "eval_golden_v1.npz")
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
@@ -163,6 +185,12 @@ CROWDED_SEED = 0
 # 0.05 score threshold, so candidates of every class are live and NMS works.
 FLAGSHIP_CLASS_BIAS = -2.5
 SANITY_MAP_BAR = 0.002  # int8 mAP against JAX's, the bar bf16 is held to
+# f32 evaluate() against JAX's numbers: the f32 detections match JAX's with
+# scores within 1e-3 (phase sanity), which can reorder only near-ties
+EVAL_MAP_BAR = 1e-3
+# a staging buffer's wait for its last upload, within a step or a predict:
+# with the metrics read back every step, that upload has long finished
+STAGING_WAIT_BAR_MS = 1.0
 
 
 def emit(obj: dict) -> None:
@@ -267,6 +295,13 @@ def phase_nms() -> dict:
                     "serving-shape case must have every problem live")
         else:
             check_nms_case(case, case.name)
+    # an evaluation's predict at the flagship's training batch: 64 x 80
+    # problems, every one live
+    b64 = next(c for c in kernel_cases.nms_cases(
+        64, 1024, 80, max_k=nms_cuda._max_k(DEVICE)) if c.name == "serve")
+    row = check_nms_case(b64, "eval_b64")
+    if row["live_problems"] != row["G"]:
+        raise AssertionError("eval_b64 must have every problem live")
     return main
 
 
@@ -722,7 +757,8 @@ def host_attribution(pred: Predictor, batch: np.ndarray) -> dict:
     device time of its kernels and copies, and each stream or device
     synchronization with the ops it ran under. Fails if one ran under the
     dispatch's spans (a host copy to the card from pageable memory, a
-    scalar read back): dispatch would wait for the card."""
+    scalar read back): dispatch would wait for the card; and if the staging
+    buffer's wait for its last upload took ``STAGING_WAIT_BAR_MS``."""
     pred.predict(batch)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -732,45 +768,29 @@ def host_attribution(pred: Predictor, batch: np.ndarray) -> dict:
         pred.predict(batch)
         wall = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    spans = dict.fromkeys(SPANS, 0.0)
-    runtime = collections.Counter()
-    calls = collections.Counter()
-    syncs = []
-    device = 0.0
-    kernels = 0
-    for e in prof.events():
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        # a span is also mirrored on the device timeline as an annotation
-        if e.device_type == cpu and e.name.startswith("predict."):
-            spans[e.name.split(".", 1)[1]] += ms
-        elif e.device_type == cpu and e.name.startswith("cuda"):
-            runtime[e.name] += ms  # cudaLaunchKernel, cudaMemcpyAsync, ...
-            calls[e.name] += 1
-            if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-                chain, parent = [], e.cpu_parent
-                while parent is not None and len(chain) < 6:
-                    chain.append(parent.name)
-                    parent = parent.cpu_parent
-                syncs.append({"call": e.name, "ms": ms, "thread": e.thread,
-                              "under": chain})
-        elif e.device_type == cuda and not e.is_user_annotation:
-            device += ms  # kernels and copies, one stream
-            kernels += 1
+    summary = profiling.summarize(prof, "predict.")
+    spans = {k: summary["host_ms"].get(f"predict.{k}", 0.0) for k in SPANS}
     if not all(spans.values()):
         raise AssertionError(f"profiler spans missing: {spans}")
     # dispatch must return without waiting for the card: the only wait of a
     # predict is collect's, on its readback event
-    stalls = [x for x in syncs if any(
-        f"predict.{k}" in x["under"] for k in ("feed", "copy", "launch"))]
+    stalls = profiling.syncs_under(summary, tuple(
+        f"predict.{k}" for k in ("feed", "copy", "launch")))
     if stalls:
         raise AssertionError(f"predict_dispatch waited for the card: {stalls}")
-    return {"wall_ms": wall, "host_ms": spans, "syncs": syncs,
+    staging_ms = sum(w["ms"] for w in profiling.staging_waits(summary))
+    if staging_ms > STAGING_WAIT_BAR_MS:
+        raise AssertionError(f"staging waited {staging_ms} ms")
+    runtime = collections.Counter(summary["cuda_runtime_ms"])
+    device = summary["device_busy_ms"]
+    return {"wall_ms": wall, "host_ms": spans, "syncs": summary["syncs"],
+            "staging_wait_ms": staging_ms,
             "host_other_ms": wall - sum(spans.values()),
             "cuda_runtime_calls_ms": sum(runtime.values()),
-            "cuda_runtime_top": {k: {"ms": v, "calls": calls[k]}
-                                 for k, v in runtime.most_common(4)},
-            "device_ops": kernels,
+            "cuda_runtime_top": {
+                k: {"ms": v, "calls": summary["cuda_runtime_calls"][k]}
+                for k, v in runtime.most_common(4)},
+            "device_ops": summary["device_ops"],
             "device_busy_ms": device,
             "device_idle_share": max(0.0, 1.0 - device / wall),
             "profiler_saw_device": device > 0}
@@ -1434,7 +1454,7 @@ class TimedBatches(synthetic.SceneBatches):
 
 
 def phase_train_flagship(power_line: str, warmup: int = 3,
-                         timed: int = 10) -> int:
+                         timed: int = 10) -> tuple[int, float]:
     """``warmup + timed + 1`` steps through ``train()``: a step is timed
     from its batch being ready to the next batch being asked for (its
     metrics read back in between), so the last step, followed by the
@@ -1519,7 +1539,394 @@ def phase_train_flagship(power_line: str, warmup: int = 3,
           "device_ms": breakdown,
           "export_served": True,
           "note": "unoptimised eager bring-up reading on " + power_line})
-    return launches
+    return launches, p50
+
+
+# ------------------------------------------------------------------ training pipeline
+
+PIPE_STEPS = 24  # 512, 640, 768 in turns of 4 steps (multiscale_every 4)
+PIPE_TEACHER_STEPS = 3
+PIPE_TRAIN_EXAMPLES, PIPE_TRAIN_SHARDS = 256, 4
+PIPE_VAL_EXAMPLES = 64
+PIPE_SIZES = [(480, 640), (640, 640), (600, 800)]
+PIPE_SEED = 21
+PIPE_TIMEOUT_S = 600
+PROFILE_AT = PROFILE_START + 1  # the logged step the profiler records
+
+
+def write_pipeline_dataset(root: str) -> dict:
+    """The crowded train and val scenes as PIL JPEGs (quality 90), through
+    the port's ``create_tfrecords`` into shards with their label map."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, n, shards, seed in (
+            ("train", PIPE_TRAIN_EXAMPLES, PIPE_TRAIN_SHARDS, PIPE_SEED),
+            ("val", PIPE_VAL_EXAMPLES, 1, PIPE_SEED + 1)):
+        synthetic.write_coco_scenes(
+            os.path.join(root, f"{name}_img"),
+            os.path.join(root, f"{name}.json"), n, PIPE_SIZES, 80, seed,
+            objects=(20, 60), sides=(12, 200))
+        create_tfrecords.main([
+            "--annotations", os.path.join(root, f"{name}.json"),
+            "--images", os.path.join(root, f"{name}_img"),
+            "--output", os.path.join(root, name),
+            "--num-shards", str(shards)])
+        out[name] = os.path.join(root, f"{name}-*-of-*")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_train_cli(cfg_path: str, workdir: str, steps: int,
+                  profile: int = 0) -> tuple[list[str], dict]:
+    """``python -m ssd_tpu_torch.train`` in a subprocess: its stdout lines
+    and its closing summary (kernel launches, peak memory)."""
+    cmd = [sys.executable, "-m", "ssd_tpu_torch.train", "--config",
+           cfg_path, "--workdir", workdir, "--max-steps", str(steps)]
+    if profile:
+        cmd += ["--profile", str(profile)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=PIPE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return lines, json.loads(lines[-1])
+
+
+def step_times(records: list[dict]) -> dict:
+    """Per-step times of a ``log_every=1`` run from its records: step k's
+    time is the host clock between records k-1 and k less its wait for the
+    batch. The profiled step and the one after it (the profiler's stop)
+    are left out of everything; each scale's first step (cuDNN's
+    autotuning) is left out of the p50s, not of the wait's share and
+    img/s, which are over the loop's wall time of the steps kept."""
+    train_recs = [r for r in records if "loss" in r]
+    seen, by_scale = {train_recs[0]["image_hw"][0]}, collections.defaultdict(
+        list)
+    waits, wall, steps = [], 0.0, 0
+    for prev, r in zip(train_recs, train_recs[1:]):
+        s = r["image_hw"][0]
+        first = s not in seen
+        seen.add(s)
+        if r["step"] in (PROFILE_AT, PROFILE_AT + 1):
+            continue
+        # the intervals of the unprofiled steps: input wait + step
+        waits.append(r["data_wait_s"])
+        wall += r["time"] - prev["time"]
+        steps += 1
+        if not first:
+            by_scale[s].append((r["time"] - prev["time"] - r["data_wait_s"])
+                               * 1e3)
+    return {"step_ms_by_scale": {str(k): v for k, v in by_scale.items()},
+            "p50_step_ms_by_scale": {str(k): float(np.median(v))
+                                     for k, v in by_scale.items()},
+            "data_wait_ms": [w * 1e3 for w in waits],
+            "p50_data_wait_ms": float(np.median(waits) * 1e3),
+            "data_wait_share": float(sum(waits) / wall),
+            "loop_wall_s": wall, "timed_steps": steps}
+
+
+def golden_pipeline_check() -> dict:
+    """The card's ``Pipeline`` on ``assets/train_golden_v1.npz``'s shard
+    against JAX's stored batches. Boxes, labels, counts and the eval
+    fields equal; images bit-equal, except: at most 1 unit, and only in
+    examples whose colour jitter ran (found by replaying the batch with
+    the jitter off, which changes no earlier draw)."""
+    with np.load(TRAIN_GOLDEN, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    cfg = Config.from_json(str(arrays["config_json"]))
+    with tempfile.TemporaryDirectory() as root:
+        shard = os.path.join(root, "g-00000-of-00001.tfrecords")
+        arrays["shard"].tofile(shard)
+        n = sum(1 for k in arrays if k.startswith("train") and
+                k.endswith("/images"))
+
+        def take(c: Config) -> list:
+            it = iter(pipeline.Pipeline(shard, c, seed=c.train.seed))
+            out = [next(it) for _ in range(n)]
+            it.close()
+            return out
+
+        got = take(cfg)
+        no_colour = take(dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, color_jitter_probability=0.0)))
+        got_eval = list(pipeline.Pipeline(shard, cfg, is_training=False,
+                                          batch_size=6))[-1]
+    diffs, colour_examples, failures = [], 0, []
+    for i, (g, off) in enumerate(zip(got, no_colour)):
+        want = {k.split("/", 1)[1]: v for k, v in arrays.items()
+                if k.startswith(f"train{i}/")}
+        for k in ("boxes", "labels", "num_boxes"):
+            if not np.array_equal(g[k], want[k]):
+                failures.append(f"train{i} {k}")
+        for j in range(len(g["images"])):
+            coloured = not np.array_equal(g["images"][j], off["images"][j])
+            colour_examples += coloured
+            d = np.abs(g["images"][j].astype(np.int16)
+                       - want["images"][j].astype(np.int16))
+            if d.any():
+                diffs.append({"batch": i, "example": j,
+                              "pixels": int((d > 0).sum()),
+                              "max": int(d.max()), "colour": coloured})
+                if d.max() > 1 or not coloured:
+                    failures.append(f"train{i} example {j} images")
+    want_eval = {k.split("/", 1)[1]: v for k, v in arrays.items()
+                 if k.startswith("eval/")}
+    for k, v in want_eval.items():
+        if not np.array_equal(got_eval[k], v):
+            failures.append(f"eval {k}")
+    result = {"train_batches": n,
+              "examples": sum(len(g["images"]) for g in got),
+              "examples_with_colour": colour_examples,
+              "image_diffs": diffs, "eval_equal": not any(
+                  f.startswith("eval") for f in failures),
+              "decoder": native.decoders(), "failures": failures}
+    if failures:
+        raise AssertionError(f"pipeline differs from JAX's golden: {result}")
+    return result
+
+
+def pipeline_ms_by_scale(train_pattern: str, cfg: Config,
+                         reps: int = 2) -> tuple[dict, dict]:
+    """The host pipeline alone (no training running), ``num_workers`` 8:
+    ms to make the first batch of epoch 0 at each scale, the best and the
+    mean of ``reps``; and that batch at each scale."""
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, num_workers=8))
+    p = pipeline.Pipeline(train_pattern, cfg, seed=cfg.train.seed)
+    ids = p._epoch_order(0)[:p.batch_size]
+    out, batches = {}, {}
+    for s in cfg.train.multiscale:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            batches[s] = p._make_batch(ids, 0, (s, s))
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[str(s)] = {"best_ms": min(times), "mean_ms": float(np.mean(times))}
+    return out, batches
+
+
+def pipeline_match_check(cfg: Config, batches: dict) -> dict:
+    """K2 against its plain version on a real pipeline batch at each
+    training scale, with the anchors of the ``Detector`` the training loop
+    builds for that scale (``train.step_fn_for``): ``check_match_case``'s
+    checks, best gt, IoU and anchor and the matches equal."""
+    out, model = {}, None
+    for s, b in batches.items():
+        det = Detector(dataclasses.replace(cfg, image_size=(s, s)),
+                       device=DEVICE, model=model)
+        model = det.model
+        case = kernel_cases.MatchCase(
+            f"train_pipeline_{s}", det.anchors.cpu().numpy(), b["boxes"],
+            b["num_boxes"].astype(np.int32),
+            cfg.matcher.force_match_for_each_gt)
+        row = check_match_case(case, case.name, cfg.matcher)
+        out[str(s)] = {k: row[k] for k in ("A", "M", "gts", "positives",
+                                           "ignored", "equal")}
+    return out
+
+
+def eval_golden_check() -> dict:
+    """``train.evaluate`` on the card over ``assets/eval_golden_v1.npz``'s
+    shard (the 32 held-out sanity scenes, JPEG bytes) with the trained
+    sanity weights in f32, in batches of 12 (a padded tail): every mAP, AP
+    and AR within ``EVAL_MAP_BAR`` of JAX's stored numbers (NaN where
+    JAX's is), K1 once per eval batch."""
+    with np.load(EVAL_GOLDEN, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    want = {k.split("/", 1)[1]: float(v) for k, v in arrays.items()
+            if k.startswith("jax/")}
+    cfg = Config.from_json(str(arrays["config_json"]))
+    _, state = load_npz_artifact(ASSET)
+    with tempfile.TemporaryDirectory() as root:
+        shard = os.path.join(root, "val-00000-of-00001.tfrecords")
+        arrays["shard"].tofile(shard)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, val_file_pattern=shard))
+        n = len(pipeline.ShardIndex([shard]))
+        nms_cuda.launches = 0
+        got = evaluate(Detector(cfg, state, device=DEVICE), cfg)
+        launches = nms_cuda.launches
+    diff = {k: got[k] - v for k, v in want.items()}
+    bad = [k for k, d in diff.items()
+           if not (abs(d) <= EVAL_MAP_BAR
+                   or (np.isnan(got[k]) and np.isnan(want[k])))]
+    batches = -(-n // cfg.train.batch_size)
+    result = {"images": n, "batch": cfg.train.batch_size,
+              "map": got["mAP"], "jax_cpu_map": want["mAP"],
+              "diff": {k: (None if np.isnan(d) else d)
+                       for k, d in diff.items()},
+              "bar": EVAL_MAP_BAR, "nms_launches": launches}
+    if bad or launches != batches:
+        raise AssertionError(f"evaluate differs from JAX's ({bad}) or "
+                             f"launched K1 {launches} times for {batches} "
+                             f"batches: {result}")
+    return result
+
+
+def phase_train_pipeline(power_line: str, flagship_p50_ms: float
+                         ) -> tuple[int, int, int]:
+    """The shipped flagship trained through the CLI from tfrecords at
+    full width (batch 64, 512/640/768, mosaic, crop, flip, colour, EMA),
+    evaluated at its last step; re-run (it resumes and stops); its
+    ``best.npz`` and ``export.npz`` served; a warm-started run distilled
+    from that export; the host pipeline against JAX's golden and timed
+    alone; K2 against its plain version on a pipeline batch at each scale;
+    ``evaluate`` against JAX's numbers on the eval golden; no wait for the
+    card inside a profiled steady step. Returns (K2 launches of the
+    training run, K1 launches of its evaluation and the serves, K1
+    launches of the eval golden's ``evaluate``)."""
+    root = tempfile.mkdtemp(prefix="ssd_pipe_")
+    try:
+        data = write_pipeline_dataset(root)
+        with open(FLAGSHIP) as f:
+            cfg_dict = json.load(f)
+        overrides = {
+            "data.train_file_pattern": data["train"],
+            "data.val_file_pattern": data["val"],
+            "train.multiscale_every": 4, "train.log_every": 1,
+            "train.eval_every": PIPE_STEPS,
+            "train.checkpoint_every": PIPE_STEPS}
+        cfg = Config.from_dict(bench_serve.apply_overrides(
+            cfg_dict, [f"{k}={json.dumps(v)}" for k, v in overrides.items()]))
+        cfg_path = os.path.join(root, "flagship.json")
+        cfg.save(cfg_path)
+        accum = max(cfg.train.grad_accum_steps, 1)
+        workdir = os.path.join(root, "run")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lines, summary = run_train_cli(cfg_path, workdir, PIPE_STEPS,
+                                       profile=1)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train_recs = [r for r in records if "loss" in r]
+        evals = [r for r in records if "mAP" in r]
+        if len(train_recs) != PIPE_STEPS:
+            raise AssertionError(f"{len(train_recs)} logged steps")
+        if not all(np.isfinite(v) for r in train_recs for v in r.values()
+                   if isinstance(v, float)):
+            raise AssertionError("a training metric is not finite")
+        scales = sorted({r["image_hw"][0] for r in train_recs})
+        if scales != sorted(cfg.train.multiscale):
+            raise AssertionError(f"trained at {scales}")
+        if len(evals) != 1 or not np.isfinite(evals[0]["mAP"]):
+            raise AssertionError(f"evaluation: {evals}")
+        match_launches = summary["kernel_launches"]["match"]
+        eval_nms = summary["kernel_launches"]["nms"]
+        if match_launches != PIPE_STEPS * accum:
+            raise AssertionError(f"{match_launches} matching launches, want "
+                                 f"{PIPE_STEPS * accum}")
+        if eval_nms < 1:
+            raise AssertionError("evaluation launched no NMS")
+        with open(os.path.join(workdir, "profile", "summary.json")) as f:
+            prof = json.load(f)
+        in_step = profiling.syncs_under(prof, ("train.feed", "train.step"))
+        pageable = profiling.pageable_uploads(prof)
+        staging_ms = sum(w["ms"] for w in profiling.staging_waits(prof))
+        if (not prof["device_ops"] or in_step or pageable
+                or staging_ms > STAGING_WAIT_BAR_MS):
+            raise AssertionError(f"a training step waited for the card: "
+                                 f"syncs {in_step}, pageable uploads "
+                                 f"{pageable}, staging waits {staging_ms} "
+                                 f"ms, device ops {prof['device_ops']}")
+        timing = step_times(records)
+
+        # the same command again: it resumes, trains no step, stops
+        t1 = time.perf_counter()
+        again, _ = run_train_cli(cfg_path, workdir, PIPE_STEPS)
+        resume_s = time.perf_counter() - t1
+        if f"resumed from step {PIPE_STEPS}" not in again or any(
+                line.startswith("step=") for line in again):
+            raise AssertionError(f"re-run did not resume: {again[-5:]}")
+
+        # both artifacts serve, with the label map, through K1
+        val = next(iter(pipeline.Pipeline(data["val"], cfg,
+                                          is_training=False, batch_size=8)))
+        nms_cuda.launches = 0
+        served = {}
+        for name in ("best.npz", "export.npz"):
+            pred = Predictor.from_npz(os.path.join(workdir, name),
+                                      device=DEVICE)
+            out = pred.predict(val["images"])
+            _check_output(out, 8, cfg.nms.max_boxes)
+            if pred.label_map is None or len(pred.label_map) != 80:
+                raise AssertionError(f"{name}: no label map")
+            served[name] = int(out["num_boxes"].sum())
+        serve_nms = nms_cuda.launches
+        if serve_nms != 2:
+            raise AssertionError(f"{serve_nms} NMS launches serving 2")
+
+        # a warm-started run distilled from the first run's export
+        export = os.path.join(workdir, EXPORT_NAME)
+        t_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, distill_from=export, init_from=export,
+            eval_every=0))
+        t_path = os.path.join(root, "teacher.json")
+        t_cfg.save(t_path)
+        t_dir = os.path.join(root, "distill")
+        t1 = time.perf_counter()
+        t_lines, t_summary = run_train_cli(t_path, t_dir, PIPE_TEACHER_STEPS)
+        distill_s = time.perf_counter() - t1
+        copied = [line for line in t_lines
+                  if line.startswith("warm_start: copied")]
+        counts = [line.split()[2].split("/") for line in copied]
+        if not copied or any(a != b for a, b in counts):
+            raise AssertionError(f"warm start copied {copied}")
+        with open(os.path.join(t_dir, "metrics.jsonl")) as f:
+            distill = [json.loads(line)["distill_loss"] for line in f]
+        if len(distill) != PIPE_TEACHER_STEPS or not all(
+                np.isfinite(distill)):
+            raise AssertionError(f"distill_loss {distill}")
+        if t_summary["kernel_launches"]["match"] != PIPE_TEACHER_STEPS * accum:
+            raise AssertionError(f"distilled run: {t_summary}")
+
+        golden = golden_pipeline_check()
+        alone, scale_batches = pipeline_ms_by_scale(data["train"], cfg)
+        match_by_scale = pipeline_match_check(cfg, scale_batches)
+        del scale_batches
+        eval_golden = eval_golden_check()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    batch = cfg.train.batch_size
+    emit({"phase": "train_pipeline", "card": power_line,
+          "config": os.path.relpath(FLAGSHIP, ROOT),
+          "overrides": overrides | {"--max-steps": PIPE_STEPS,
+                                    "--profile": 1},
+          "dataset": {"train": PIPE_TRAIN_EXAMPLES,
+                      "train_shards": PIPE_TRAIN_SHARDS,
+                      "val": PIPE_VAL_EXAMPLES, "sizes": PIPE_SIZES,
+                      "write_s": data["seconds"]},
+          "batch": batch, "grad_accum_steps": accum,
+          "mosaic": cfg.data.mosaic_probability,
+          "ema_decay": cfg.train.ema_decay, "steps": PIPE_STEPS,
+          **{k: v for k, v in timing.items() if v is not None},
+          "img_per_s": batch * timing["timed_steps"] / timing["loop_wall_s"],
+          "img_per_s_by_scale": {
+              k: batch / v * 1e3
+              for k, v in timing["p50_step_ms_by_scale"].items()},
+          "train_flagship_p50_step_ms_640": flagship_p50_ms,
+          "pipeline_ms_alone": alone,
+          "peak_mem_gib": summary["peak_mem_gib"],
+          "match_launches": match_launches, "eval_nms_launches": eval_nms,
+          "serve_nms_launches": serve_nms, "served_boxes": served,
+          "eval": {k: evals[0][k] for k in ("mAP", "AP50")},
+          "final_loss": train_recs[-1]["loss"],
+          "profiled_step": {
+              "syncs_in_step": in_step, "all_syncs": prof["syncs"],
+              "staging_wait_ms": staging_ms,
+              "copies": prof["copies"], "host_ms": prof["host_ms"],
+              "device_busy_ms": prof["device_busy_ms"],
+              "device_ops": prof["device_ops"]},
+          "resume_s": resume_s, "distill": {
+              "steps": PIPE_TEACHER_STEPS, "warm_start": copied,
+              "distill_loss": distill, "seconds": distill_s,
+              "peak_mem_gib": t_summary["peak_mem_gib"]},
+          "golden": golden, "match_vs_plain_by_scale": match_by_scale,
+          "eval_golden": eval_golden, "cli_wall_s": wall,
+          "cli_reported_wall_s": summary["wall_s"]})
+    return match_launches, eval_nms + serve_nms, eval_golden["nms_launches"]
 
 
 def main() -> int:
@@ -1555,20 +1962,25 @@ def main() -> int:
     main_early, early_launches = phase_fused_early(power_line)
     main_match = phase_match()
     phase_train_sanity()
-    match_launches = phase_train_flagship(power_line)
+    match_launches, flagship_p50 = phase_train_flagship(power_line)
+    (match_launches_pipeline, nms_launches_train,
+     nms_launches_eval_golden) = phase_train_pipeline(power_line, flagship_p50)
 
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",
         "replaces": "ssd_tpu/ops/nms_pallas.py:78",
         "launches": (nms_launches + nms_launches_int8
                      + nms_launches_reference + nms_launches_int8_sanity
-                     + nms_launches_golden + nms_launches_pipelined),
+                     + nms_launches_golden + nms_launches_pipelined
+                     + nms_launches_train + nms_launches_eval_golden),
         "launches_by_path": {
             "flagship": nms_launches, "int8_flagship": nms_launches_int8,
             "reference_serve": nms_launches_reference,
             "int8_sanity": nms_launches_int8_sanity,
             "serve_golden": nms_launches_golden,
-            "serve_pipelined": nms_launches_pipelined},
+            "serve_pipelined": nms_launches_pipelined,
+            "train_pipeline": nms_launches_train,
+            "eval_golden": nms_launches_eval_golden},
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
         "timing": main_nms["timing"], "call_ms": main_nms["call_ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
@@ -1577,7 +1989,9 @@ def main() -> int:
         "name": "match", "route": "cuda",
         "source": "ssd_tpu_torch/csrc/match.cu",
         "replaces": "ssd_tpu/ops/matching_pallas.py:60",
-        "launches": match_launches,
+        "launches": match_launches + match_launches_pipeline,
+        "launches_by_path": {"train_flagship": match_launches,
+                             "train_pipeline": match_launches_pipeline},
         "max_abs_err": main_match["max_abs_err"], "ms": main_match["ms"],
         "timing": main_match["timing"], "call_ms": main_match["call_ms"],
         "plain_ms": main_match["plain_ms"],

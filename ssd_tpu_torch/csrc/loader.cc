@@ -1,15 +1,17 @@
-// Host ingest for serving: JPEG decode with a fused resize, bilinear
-// resize, and the space-to-depth(4) pack of the dense4 feed.
+// Host ingest: JPEG decode with a fused resize, bilinear resize, the
+// space-to-depth(4) pack of the dense4 feed, and the tfrecord shard index
+// with its crc32c.
 //
-// The port's own copy of the serving half of the JAX package's
-// native/loader.cc, with the same arithmetic, so the two libraries give the
+// The port's own copy of the JAX package's native/loader.cc, with the same
+// arithmetic, so the two libraries give the
 // same bytes when built with the same compiler and flags. Exposed as a C ABI
 // for ctypes (ssd_tpu_torch/data/native.py), whose foreign calls release the
 // GIL: the batch decoder's and the pack's std::thread pools, and decodes in
 // several request threads at once, run in parallel.
 //
 // The JPEG half is compiled only with -DSSD_WITH_JPEG (and linked with
-// -ljpeg); without it the library still exports resize and pack, and
+// -ljpeg); without it the library still exports resize, pack, crc32c and
+// the tfrecord index, and
 // ssd_jpeg_available() returns 0. ssd_tpu_torch/_build.py builds it with the
 // host compiler at first use.
 
@@ -270,6 +272,94 @@ int ssd_pack_s2d(const uint8_t* src, int n, int h, int w, int8_t* dst,
   for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
   for (auto& t : threads) t.join();
   return 0;
+}
+
+
+// The tfrecord half, as in the JAX package's native/loader.cc.
+//
+// crc32c (Castagnoli), slice-by-8 table — tfrecord verification hot path.
+static uint32_t kCrcTable[8][256];
+static bool crc_init = []() {
+  const uint32_t poly = 0x82F63B78u;
+  for (int i = 0; i < 256; ++i) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ poly : c >> 1;
+    kCrcTable[0][i] = c;
+  }
+  for (int t = 1; t < 8; ++t)
+    for (int i = 0; i < 256; ++i)
+      kCrcTable[t][i] =
+          (kCrcTable[t - 1][i] >> 8) ^ kCrcTable[0][kCrcTable[t - 1][i] & 0xFF];
+  return true;
+}();
+
+// TFRecord shard indexing: walk the framing sequentially, verify every
+// header CRC (rejects non-tfrecord files swept in by broad globs), and
+// emit (payload offset, payload length) pairs for random access. Stops
+// cleanly at a truncated tail, matching the Python walker
+// (ssd_tpu_torch/data/tfrecord.py record_offsets). GIL-free via ctypes.
+//
+// Returns the record count (>= 0); -1 on header-CRC mismatch with
+// *bad_pos = file offset of the bad record; -2 when the file cannot be
+// opened; -3 when `cap` is too small (never happens for cap >= size/16+1,
+// the minimum record footprint being 16 bytes).
+uint32_t ssd_crc32c(const uint8_t* data, uint64_t len);  // defined below
+
+int64_t ssd_tfrecord_index(const char* path, uint64_t* offsets,
+                           uint64_t* lengths, int64_t cap,
+                           uint64_t* bad_pos) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -2;
+  if (fseek(f, 0, SEEK_END) != 0) { fclose(f); return -2; }
+  const uint64_t size = static_cast<uint64_t>(ftell(f));
+  rewind(f);
+
+  int64_t n = 0;
+  uint64_t pos = 0;
+  uint8_t hdr[12];
+  while (pos + 12 <= size) {
+    if (fread(hdr, 1, 12, f) != 12) break;  // truncated tail
+    uint64_t len = 0;
+    for (int i = 7; i >= 0; --i) len = (len << 8) | hdr[i];
+    uint32_t stored = static_cast<uint32_t>(hdr[8]) | (hdr[9] << 8) |
+                      (hdr[10] << 16) |
+                      (static_cast<uint32_t>(hdr[11]) << 24);
+    uint32_t crc = ssd_crc32c(hdr, 8);
+    uint32_t masked =
+        (((crc >> 15) | (crc << 17)) + 0xA282EAD8u) & 0xFFFFFFFFu;
+    if (masked != stored) {
+      if (bad_pos) *bad_pos = pos;
+      fclose(f);
+      return -1;
+    }
+    if (pos + 12 + len + 4 > size) break;  // truncated tail
+    if (n >= cap) { fclose(f); return -3; }
+    offsets[n] = pos + 12;
+    lengths[n] = len;
+    ++n;
+    pos += 12 + len + 4;
+    if (fseek(f, static_cast<long>(pos), SEEK_SET) != 0) break;
+  }
+  fclose(f);
+  return n;
+}
+
+uint32_t ssd_crc32c(const uint8_t* data, uint64_t len) {
+  uint32_t crc = 0xFFFFFFFFu;
+  while (len >= 8) {
+    crc ^= static_cast<uint32_t>(data[0]) | (data[1] << 8) | (data[2] << 16) |
+           (static_cast<uint32_t>(data[3]) << 24);
+    uint32_t hi = static_cast<uint32_t>(data[4]) | (data[5] << 8) |
+                  (data[6] << 16) | (static_cast<uint32_t>(data[7]) << 24);
+    crc = kCrcTable[7][crc & 0xFF] ^ kCrcTable[6][(crc >> 8) & 0xFF] ^
+          kCrcTable[5][(crc >> 16) & 0xFF] ^ kCrcTable[4][crc >> 24] ^
+          kCrcTable[3][hi & 0xFF] ^ kCrcTable[2][(hi >> 8) & 0xFF] ^
+          kCrcTable[1][(hi >> 16) & 0xFF] ^ kCrcTable[0][hi >> 24];
+    data += 8;
+    len -= 8;
+  }
+  while (len--) crc = (crc >> 8) ^ kCrcTable[0][(crc ^ *data++) & 0xFF];
+  return crc ^ 0xFFFFFFFFu;
 }
 
 }  // extern "C"

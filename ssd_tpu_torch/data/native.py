@@ -1,5 +1,6 @@
 """ctypes bindings for the port's host ingest library (``csrc/loader.cc``),
-the counterpart of the JAX package's ``ssd_tpu/data/native.py``.
+the counterpart of the JAX package's ``ssd_tpu/data/native.py``: JPEG
+decode, resize, the dense4 pack, crc32c and the tfrecord shard index.
 
 The library is built with the host compiler at first use (``_build.
 load_host``), not at import. Resize and pack have no fallback: if the
@@ -19,6 +20,7 @@ decoder and the pack.
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 
 import numpy as np
@@ -45,6 +47,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int]
     lib.ssd_pack_s2d.restype = ctypes.c_int
+    lib.ssd_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+    lib.ssd_crc32c.restype = ctypes.c_uint32
+    lib.ssd_tfrecord_index.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64)]
+    lib.ssd_tfrecord_index.restype = ctypes.c_int64
     if lib.ssd_jpeg_available():
         lib.ssd_decode_jpeg.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
@@ -255,3 +264,51 @@ def decoders() -> dict:
         info.update(pil=PIL.__version__, pil_jpeg=features.version("jpg"),
                     pil_libjpeg_turbo=features.version("libjpeg_turbo"))
     return info
+
+
+def crc32c(data: bytes) -> int:
+    """crc32c (Castagnoli) of ``data`` in the library (slice-by-8 tables);
+    equal to ``data.tfrecord.crc32c``, the Python version."""
+    data = bytes(data)
+    return int(library().ssd_crc32c(data, len(data)))
+
+
+def tfrecord_index(path: str) -> list[tuple[int, int]]:
+    """``(payload offset, length)`` of every record of a tfrecord shard,
+    walked in the library with the GIL released: every header CRC is
+    checked, a truncated tail stops cleanly (``data.tfrecord.
+    record_offsets``). Raises ``IOError`` for a file that is not a
+    tfrecord, with the Python walker's message, and ``OSError`` for one
+    that cannot be opened or read."""
+    with open(path, "rb") as f:  # the OS error, in Python's words
+        size = os.fstat(f.fileno()).st_size
+    # Start from a typical record size and grow on -3 (cap too small)
+    # rather than allocating the worst case up front: size // 16 entries
+    # would cost about the file's size in index for a big shard.
+    hard_cap = size // 16 + 1  # a record is at least 16 bytes: enough
+    cap = min(max(size // 4096 + 16, 1024), hard_cap)
+    lib = library()
+    while True:
+        offsets = np.empty(cap, np.uint64)
+        lengths = np.empty(cap, np.uint64)
+        bad = ctypes.c_uint64(0)
+        n = lib.ssd_tfrecord_index(
+            os.fsencode(path),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            cap, ctypes.byref(bad))
+        if n != -3:
+            break
+        cap = min(cap * 4, hard_cap)
+    if n == -1:
+        raise IOError(
+            f"{path}: not a TFRecord file (header CRC mismatch at "
+            f"offset {bad.value}). Is the file pattern matching "
+            "non-tfrecord files (e.g. the *-label_map.json / "
+            "*-category_ids.json sidecars)? Use a pattern like "
+            "'<prefix>-*-of-*'.")
+    if n == -2:
+        raise OSError(f"{path}: cannot open or seek the file")
+    if n < 0:
+        raise RuntimeError(f"{path}: ssd_tfrecord_index returned {n}")
+    return [(int(offsets[i]), int(lengths[i])) for i in range(n)]

@@ -8,6 +8,10 @@ from ``ssd_tpu/eval/sanity.py``. For the same ``numpy`` generator they draw
 the same numbers in the same order, so the scenes, boxes and labels are
 bit-identical to the JAX package's.
 
+``write_coco_scenes`` writes a small COCO-style dataset (JPEG files and
+an instances JSON) of seeded scenes of mixed sizes, for
+``data/create_tfrecords.py`` to turn into shards.
+
 ``SceneBatches`` yields batches in the input pipeline's contract
 (``ssd_tpu/data/pipeline.py``): ``images (B, H, W, 3) uint8``, ``boxes (B,
 M, 4) float32`` zero-padded, ``labels (B, M) int32`` and ``num_boxes (B,)
@@ -19,6 +23,8 @@ interrupted one would have.
 from __future__ import annotations
 
 import colorsys
+import json
+import os
 from typing import Callable
 
 import numpy as np
@@ -156,3 +162,68 @@ class SceneBatches:
 
     def restore(self, state: dict) -> None:
         self.position = int(state["position"])
+
+
+CROWD_SHARE = 0.05  # of a written scene's annotations, marked iscrowd
+JPEG_QUALITY = 90
+
+
+def coco_scene(rng: np.random.Generator, hw: tuple[int, int],
+               num_classes: int, objects: tuple[int, int],
+               sides: tuple[int, int]):
+    """One ``hw`` scene of ``objects`` (a range) filled rectangles whose
+    sides lie in ``sides`` px (clipped to the image), a darker border
+    each: ``(image uint8, annotations)`` with COCO's ``bbox [x, y, w, h]``
+    in pixels, a 0-based ``category_id`` and ``iscrowd`` set on about
+    ``CROWD_SHARE`` of them."""
+    h_img, w_img = hw
+    img = rng.integers(0, 60, (h_img, w_img, 3)).astype(np.uint8)
+    palette = _palette(num_classes)
+    anns = []
+    for _ in range(int(rng.integers(objects[0], objects[1] + 1))):
+        h = min(int(rng.integers(sides[0], sides[1])), h_img - 1)
+        w = min(int(rng.integers(sides[0], sides[1])), w_img - 1)
+        y = int(rng.integers(0, h_img - h))
+        x = int(rng.integers(0, w_img - w))
+        c = int(rng.integers(0, num_classes))
+        img[y:y + h, x:x + w] = palette[c]
+        img[y, x:x + w] = img[y + h - 1, x:x + w] = palette[c] // 2
+        img[y:y + h, x] = img[y:y + h, x + w - 1] = palette[c] // 2
+        anns.append({"bbox": [x, y, w, h], "category_id": c,
+                     "iscrowd": int(rng.random() < CROWD_SHARE)})
+    return img, anns
+
+
+def write_coco_scenes(image_dir: str, json_path: str, n: int, sizes: list,
+                      num_classes: int, seed: int,
+                      objects: tuple[int, int] = (4, 24),
+                      sides: tuple[int, int] = (8, 64)) -> list[str]:
+    """Writes ``n`` scenes (sizes ``(h, w)`` in turn from ``sizes``) as
+    PIL JPEGs at ``JPEG_QUALITY`` into ``image_dir`` and their COCO instances
+    JSON (categories ``1..num_classes``, named ``class_<i>``) to
+    ``json_path``; returns the file names. Scene ``i`` is drawn from the
+    generator seeded with ``(seed, i)``; the JPEG bytes are the local
+    encoder's."""
+    from PIL import Image
+
+    os.makedirs(image_dir, exist_ok=True)
+    images, annotations, names = [], [], []
+    for i in range(n):
+        hw = tuple(sizes[i % len(sizes)])
+        img, anns = coco_scene(np.random.default_rng([seed, i]), hw,
+                               num_classes, objects, sides)
+        name = f"{i:06d}.jpg"
+        Image.fromarray(img).save(os.path.join(image_dir, name),
+                                  quality=JPEG_QUALITY)
+        images.append({"id": 1000 + i, "file_name": name, "height": hw[0],
+                       "width": hw[1]})
+        for a in anns:
+            annotations.append({**a, "id": len(annotations) + 1,
+                                "image_id": 1000 + i,
+                                "category_id": a["category_id"] + 1})
+        names.append(name)
+    with open(json_path, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c + 1, "name": f"class_{c}"}
+                                  for c in range(num_classes)]}, f)
+    return names

@@ -6,7 +6,8 @@ holds the model and the anchors on a device and runs
 
 * ``loss``: the model in train mode (batch-statistics BN, running stats
   updated), target creation with the matching kernel, the per-level (or
-  flat) focal + box loss and L2 -> ``(total, metrics)``;
+  flat) focal + box loss and L2, and with a teacher the distillation term
+  -> ``(total, metrics)``;
 * ``predict``: the model in eval mode, cell-major candidate selection and
   class-wise hard NMS, returning the public contract ``Detections(boxes,
   scores, labels, num_boxes)``.
@@ -34,6 +35,7 @@ from ssd_tpu_torch.models.layers import (BatchNorm, Conv, QuantConv,
                                          compute_dtype, space_to_depth)
 from ssd_tpu_torch.models.mobilenet import FoldedS2DConv, MobileNetV1
 from ssd_tpu_torch.ops import losses
+from ssd_tpu_torch.ops.distill import distillation_loss
 from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.nms import Detections
 from ssd_tpu_torch.ops.postprocess import postprocess_cells
@@ -201,20 +203,26 @@ class Detector:
             images = torch.from_numpy(np.ascontiguousarray(images))
         return images.to(self.device, non_blocking=True)
 
-    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, batch: dict, teacher: "Detector | None" = None
+             ) -> tuple[torch.Tensor, dict]:
         """The training loss of one batch, with gradients.
 
         ``batch``: ``images`` uint8 ``(N, H, W, 3)``, ``boxes (N, M, 4)``,
         ``labels (N, M)`` int, ``num_boxes (N,)`` int (numpy or tensors).
         Runs the model in train mode, which updates the BN running
-        statistics in place. Returns ``(total, metrics)``; the metrics are
-        detached scalars on the device.
+        statistics in place. ``teacher``: a trained ``Detector`` of the same
+        head geometry on this device; its eval-mode forward on the same
+        images, without gradients, adds ``train.distill_weight`` times the
+        distillation loss (``ops/distill.py``), logged as ``distill_loss``.
+        Returns ``(total, metrics)``; the metrics are detached scalars on
+        the device.
         """
         cfg = self.cfg
         # OHEM ranks per-anchor losses, which only the flat loss forms
         per_level = cfg.losses.per_level and not cfg.losses.use_ohem
         self.model.train()
-        raw = self.model(self.as_input(batch["images"]))
+        images = self.as_input(batch["images"])
+        raw = self.model(images)
         targets = create_targets(
             self.anchors, self.as_input(batch["boxes"]),
             self.as_input(batch["labels"]), self.as_input(batch["num_boxes"]),
@@ -233,6 +241,21 @@ class Detector:
                    "localization_loss": ld.localization,
                    "regularization_loss": reg,
                    "num_positives": ld.num_positives}
+        if teacher is not None:
+            with torch.no_grad():
+                t_raw = teacher.model.eval()(images)
+            if per_level:
+                s_out = raw
+            else:
+                s_out = (logits, deltas)
+                t_raw = flatten_levels(t_raw, cfg.num_classes)
+            dd = distillation_loss(
+                s_out, t_raw, cfg.num_classes,
+                temperature=cfg.train.distill_temperature,
+                box_weight=cfg.train.distill_box_weight)
+            total = total + cfg.train.distill_weight * dd.total
+            metrics["loss"] = total
+            metrics["distill_loss"] = dd.total
         return total, {k: v.detach() for k, v in metrics.items()}
 
     @torch.inference_mode()

@@ -142,7 +142,7 @@ class BatchNorm(nn.Module):
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.maximum(xf.square().mean(dim=(0, 2, 3))
-                                - mean.square(), mean.new_tensor(0.0))
+                                - mean.square(), mean.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(self.running_mean * m

@@ -41,7 +41,7 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def _max0(x: torch.Tensor) -> torch.Tensor:
-    return torch.maximum(x, x.new_tensor(0.0))
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -83,7 +83,7 @@ def iou_box_loss(pred: torch.Tensor, target: torch.Tensor,
     iw = _max0(mn(px1, tx1) - mx(px0, tx0))
     inter = ih * iw
     union = ph * pw + th * tw - inter
-    eps = pred.new_tensor(_EPS)
+    eps = pred.new_full((), _EPS)
     iou = inter / mx(union, eps)
 
     eh = mx(py1, ty1) - mn(py0, ty0)
@@ -124,7 +124,7 @@ def _localization_elem(box_deltas: torch.Tensor, reg_targets: torch.Tensor,
 
 def _num_positives(targets: Targets) -> torch.Tensor:
     s = targets.reg_weights.sum()
-    return torch.maximum(s, s.new_tensor(1.0))
+    return torch.maximum(s, s.new_ones(()))
 
 
 def _totals(cls_loss, loc_loss, num_pos, cfg: LossConfig) -> LossDict:
@@ -198,12 +198,12 @@ def detection_loss_levels(raw_levels: list, targets: Targets,
         lab = targets.matched_labels[:, off:off + al].reshape(n, h, w, k)
         pos = targets.reg_weights[:, off:off + al].reshape(n, h, w, k)
         wgt = targets.cls_weights[:, off:off + al].reshape(n, h, w, k)
-        enc = torch.where(wgt > 0, torch.where(pos > 0, lab, lab.new_tensor(
-            neg_v)), lab.new_tensor(ign_v))
+        enc = torch.where(wgt > 0, torch.where(pos > 0, lab, lab.new_full(
+            (), neg_v)), lab.new_full((), ign_v))
         if torch.is_grad_enabled() and cls_map.requires_grad:
             level = checkpoint(_level_focal_sum, cls_map, enc, num_classes,
                                cfg.focal_alpha, cfg.focal_gamma,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
         else:
             level = _level_focal_sum(cls_map, enc, num_classes,
                                      cfg.focal_alpha, cfg.focal_gamma)
@@ -225,7 +225,7 @@ def _ohem_classification(cls_per_anchor: torch.Tensor, targets: Targets,
     ``max(neg_ratio * num_pos, min_negatives)`` negatives of highest
     classification loss; the keep count is a rank-below-threshold mask."""
     positive = targets.reg_weights > 0
-    neg_loss = torch.where(positive, cls_per_anchor.new_tensor(-math.inf),
+    neg_loss = torch.where(positive, cls_per_anchor.new_full((), -math.inf),
                            cls_per_anchor)
     num_pos_per_image = positive.sum(1)
     k = torch.clamp_min((cfg.ohem_neg_ratio * num_pos_per_image).int(),
@@ -237,7 +237,7 @@ def _ohem_classification(cls_per_anchor: torch.Tensor, targets: Targets,
     keep_neg = (rank < k[:, None]) & ~positive & (targets.cls_weights > 0)
     keep = positive | keep_neg
     return torch.where(keep, cls_per_anchor,
-                       cls_per_anchor.new_tensor(0.0)).sum()
+                       cls_per_anchor.new_zeros(())).sum()
 
 
 def l2_regularization(params, weight_decay: float) -> torch.Tensor:

@@ -40,7 +40,7 @@ def match_core(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     ious = box_utils.iou(anchors.float()[None], gt_boxes.float())  # (N, A, M)
     valid = (torch.arange(m, device=ious.device)[None, None, :]
              < num_boxes.to(ious.device)[:, None, None])
-    ious = torch.where(valid, ious, ious.new_tensor(-1.0))
+    ious = torch.where(valid, ious, ious.new_full((), -1.0))
     # argmax takes the first of equal maxima, as jnp.argmax does
     best_gt = ious.argmax(dim=-1)
     best_iou = ious.gather(-1, best_gt[..., None])[..., 0]
@@ -56,10 +56,10 @@ def finish_matches(best_gt: torch.Tensor, best_iou: torch.Tensor,
     m = best_anchor.shape[1]
     dev = best_gt.device
     matches = torch.where(best_iou >= cfg.matching_threshold, best_gt,
-                          best_gt.new_tensor(NEGATIVE_MATCH))
+                          best_gt.new_full((), NEGATIVE_MATCH))
     band = ((best_iou >= cfg.negative_threshold)
             & (best_iou < cfg.matching_threshold))
-    matches = torch.where(band, matches.new_tensor(IGNORE_MATCH), matches)
+    matches = torch.where(band, matches.new_full((), IGNORE_MATCH), matches)
     if cfg.force_match_for_each_gt:
         # Each valid gt claims its best anchor. Where two gts share one, the
         # later gt index wins, as the JAX package's in-order scatter does.

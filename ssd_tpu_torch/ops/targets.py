@@ -53,10 +53,10 @@ def create_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor,
         gt_boxes, 1, idx[..., None].expand(*idx.shape, 4))
     reg_targets = box_utils.encode(matched_boxes, anchors[None])
     reg_targets = torch.where(positive[..., None], reg_targets,
-                              reg_targets.new_tensor(0.0))
+                              reg_targets.new_zeros(()))
 
     labels = torch.gather(gt_labels.long(), 1, idx)  # (N, A)
-    labels = torch.where(positive, labels, labels.new_tensor(-1))
+    labels = torch.where(positive, labels, labels.new_full((), -1))
     cls_targets = matched_labels = None
     if class_onehot:
         cls_targets = (labels[..., None] == torch.arange(

@@ -17,8 +17,8 @@ canvas to the original frame.
 
 On the card, ``predict_dispatch`` returns without waiting for the device:
 the host feed is written into a pinned staging buffer and copied
-asynchronously (a pool of ``staging_depth`` buffers per feed shape, each
-reused only after an event says its last copy has left it), the model and
+asynchronously (``device.PinnedStaging``: a pool of buffers per feed
+shape, each reused only after an event says its last copy has left it), the model and
 postprocess are enqueued behind it, then asynchronous copies of the four
 outputs into pinned host tensors, and one event. ``predict_collect`` waits
 on that event alone, so collecting batch k never waits for batch k + 1,
@@ -31,7 +31,6 @@ and it issues no device work.
 
 from __future__ import annotations
 
-import itertools
 import json
 
 import numpy as np
@@ -41,6 +40,7 @@ from torch.profiler import record_function
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.convert import load_npz_artifact
 from ssd_tpu_torch.data import native
+from ssd_tpu_torch.device import PinnedStaging
 from ssd_tpu_torch.models.detector import Detector
 from ssd_tpu_torch.ops.ingest import packed_shape
 
@@ -94,7 +94,7 @@ class Predictor:
     ``device=None`` runs on the card (and raises without one);
     ``device="cpu"`` runs the plain versions. ``packed_ingest=None`` packs
     the feed for dense4 configs and feeds raw uint8 otherwise; ``False``
-    forces the raw feed. ``staging_depth``: pinned staging buffers per feed
+    forces the raw feed. ``staging.depth``: pinned staging buffers per feed
     shape, at least the number of batches in flight plus one (a serving
     loop raises it to its own depth).
     """
@@ -114,11 +114,10 @@ class Predictor:
         elif packed_ingest and not dense4:
             raise ValueError("the packed feed is the dense4 stem's")
         self._packed = bool(packed_ingest)
-        self.staging_depth = 3
         # pinned staging on the card; False copies from pageable memory
         # (kept to measure the two against each other)
         self._pinned = self.device.type == "cuda"
-        self._staging: dict[tuple, itertools.cycle] = {}
+        self.staging = PinnedStaging(depth=3)
 
     @classmethod
     def from_npz(cls, path: str, **kwargs) -> "Predictor":
@@ -171,19 +170,6 @@ class Predictor:
             return images
         out[...] = images
         return out
-
-    def _staging_buffer(self, shape: tuple) -> tuple[torch.Tensor, object]:
-        """The next pinned buffer of ``shape`` and its event, once the copy
-        last issued from it has left it. The whole pool is allocated at a
-        shape's first use (``warmup`` does that off the request path)."""
-        if shape not in self._staging:
-            dtype = torch.int8 if self._packed else torch.uint8
-            self._staging[shape] = itertools.cycle([
-                (torch.empty(shape, dtype=dtype, pin_memory=True),
-                 torch.cuda.Event()) for _ in range(self.staging_depth)])
-        buf, event = next(self._staging[shape])
-        event.synchronize()
-        return buf, event
 
     def _host_feed(self, image_list: list, batch: np.ndarray | None = None
                    ) -> tuple[callable, int, object]:
@@ -241,15 +227,17 @@ class Predictor:
             fill, n, valid_frac = self._host_feed(image_list, batch)
             shape = self._feed_shape(self._bucket_for(n))
             if self._pinned:
-                buf, event = self._staging_buffer(shape)
+                # the pool is allocated at a shape's first use (``warmup``
+                # does that off the request path)
+                buf, event = self.staging.take(
+                    shape, torch.int8 if self._packed else torch.uint8)
                 host = buf.numpy()
             else:
                 host = np.empty(shape, self._feed_dtype())
             fill(host)
         with record_function("predict.copy"):
             if self._pinned:
-                feed = buf.to(self.device, non_blocking=True)
-                event.record()
+                feed = self.staging.upload(buf, event, self.device)
             else:
                 feed = torch.from_numpy(host).to(self.device,
                                                  non_blocking=True)

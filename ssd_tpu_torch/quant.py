@@ -15,10 +15,13 @@ batch) into its scale. The backbone's convs record theirs too, so a
 calibrated model serves its backbone on calibrated scales as well.
 
     python -m ssd_tpu_torch.quant --npz model.npz --output model_int8.npz \\
-        --images a.jpg b.jpg ... [--batch-size 8] [--batches 8] \\
-        [--percentile 99.9] [--backbone-only] [--device cpu]
+        --data "data/val-*.tfrecords" | --images a.jpg b.jpg ... \\
+        [--batch-size 8] [--batches 8] [--percentile 99.9] \\
+        [--backbone-only] [--device cpu]
 
-Calibration from tfrecords (``--data``) waits for the port's input pipeline.
+``--data`` draws the calibration batches from a tfrecord glob through the
+input pipeline in eval mode (``data.pipeline.Pipeline``), at the model's
+image size.
 """
 
 from __future__ import annotations
@@ -83,6 +86,21 @@ def quantize_artifact(npz_in: str, npz_out: str, batches,
     return state
 
 
+def batches_from_tfrecords(pattern: str, cfg, batch_size: int,
+                           max_batches: int):
+    """uint8 batches of a tfrecord glob, decoded at the model size by the
+    eval pipeline (its padded tail batch included); at most
+    ``max_batches``."""
+    from ssd_tpu_torch.data.pipeline import Pipeline
+
+    pipeline = Pipeline(pattern, cfg, is_training=False,
+                        batch_size=batch_size)
+    for n, batch in enumerate(pipeline):
+        if n >= max_batches:
+            break
+        yield batch["images"]
+
+
 def batches_from_images(paths: list[str], image_hw, batch_size: int,
                         max_batches: int | None = None):
     """Image files -> uint8 batches at ``image_hw``, resized by PIL as the
@@ -106,8 +124,10 @@ def main(argv=None) -> None:
                    help="source .npz artifact (bf16/f32)")
     p.add_argument("--output", required=True,
                    help="destination .npz for the int8 artifact")
+    p.add_argument("--data", default="",
+                   help="tfrecord glob of calibration images")
     p.add_argument("--images", nargs="*", default=[],
-                   help="image files for calibration")
+                   help="alternative: image files for calibration")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--batches", type=int, default=8,
                    help="at most this many calibration batches")
@@ -120,11 +140,16 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
     args = p.parse_args(argv)
-    if not args.images and not args.backbone_only:
-        p.error("calibration needs --images (or pass --backbone-only)")
+    if not args.data and not args.images and not args.backbone_only:
+        p.error("calibration needs --data or --images "
+                "(or pass --backbone-only)")
     cfg, _ = load_npz_artifact(args.npz)
-    batches = batches_from_images(args.images, cfg.image_hw(),
-                                  args.batch_size, args.batches)
+    if args.data:
+        batches = batches_from_tfrecords(args.data, cfg, args.batch_size,
+                                         args.batches)
+    else:
+        batches = batches_from_images(args.images, cfg.image_hw(),
+                                      args.batch_size, args.batches)
     quantize_artifact(args.npz, args.output, batches,
                       int8_neck=not args.backbone_only,
                       percentile=args.percentile, device=args.device)

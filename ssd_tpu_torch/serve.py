@@ -123,8 +123,8 @@ class _Dispatcher(threading.Thread):
         self.in_flight: "queue.Queue" = queue.Queue(maxsize=pipeline_depth)
         if predictor is not None:
             # a staging buffer for every batch that can be ahead of the card
-            predictor.staging_depth = max(
-                predictor.staging_depth,
+            predictor.staging.depth = max(
+                predictor.staging.depth,
                 pipeline_depth * self.scan_depth + 1)
         self.collector = threading.Thread(
             target=self._collect_loop, daemon=True, name="ssd-torch-collector")

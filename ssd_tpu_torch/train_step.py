@@ -177,9 +177,13 @@ def inference_variables(state: TrainState) -> dict:
 
 
 def make_train_step(detector: Detector, optimizer: Optimizer,
-                    ema_decay: float = 0.0, grad_accum_steps: int = 1):
+                    ema_decay: float = 0.0, grad_accum_steps: int = 1,
+                    teacher: Detector | None = None):
     """Returns ``step(state, batch) -> (state, metrics)``, which updates the
     state in place.
+
+    ``teacher``: a trained ``Detector`` at this detector's resolution, for
+    knowledge distillation (``Detector.loss``); its weights never change.
 
     ``grad_accum_steps > 1`` splits the batch into that many strided
     microbatches (``batch[i::n]``, as the JAX package does), each with its
@@ -200,7 +204,7 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
         msum = None
         for i in range(n):
             micro = batch if n == 1 else {k: v[i::n] for k, v in batch.items()}
-            total, metrics = detector.loss(micro)
+            total, metrics = detector.loss(micro, teacher)
             total.backward()
             msum = metrics if msum is None else {
                 k: msum[k] + metrics[k] for k in msum}

@@ -2,11 +2,14 @@
 
 Counterpart of ``ssd_tpu/utils/logging.py``'s ``MetricLogger`` without the
 TensorBoard writer. ``tick_data`` after the next batch is ready and
-``tick_step`` after the step is dispatched split each iteration into input
+``tick_step`` at the end of the iteration split each iteration into input
 time and step time, so an input-bound run shows from its first log line.
 Eager CUDA work is asynchronous, so a single step tick measures the host's
-dispatch plus any wait; ``log`` reads the metrics back (a synchronisation)
-every ``log_every`` steps, so the windowed mean converges to the step time.
+dispatch plus any wait; ``log`` reads the metrics back (one copy of them
+all, which waits for the card) every ``log_every`` steps, so the windowed
+mean converges to the step time. Each record also carries this step's
+wait for its batch (``data_wait_s``) and the host clock (``time``, seconds
+of ``time.perf_counter``), so consecutive records give each step's time.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import json
 import os
 import time
 from collections import deque
+
+import torch
 
 
 class MetricLogger:
@@ -46,12 +51,16 @@ class MetricLogger:
     def log(self, step: int, metrics: dict, extra: dict | None = None) -> None:
         """Prints one record and appends it to ``metrics.jsonl``."""
         record = {"step": step}
-        for k, v in metrics.items():
-            record[k] = float(v)
+        if metrics:
+            values = torch.stack([torch.as_tensor(v).float().reshape(())
+                                  for v in metrics.values()]).tolist()
+            record.update(zip(metrics, values))
         if self._step_times:
             record["step_time_s"] = sum(self._step_times) / len(self._step_times)
         if self._data_times:
             record["data_time_s"] = sum(self._data_times) / len(self._data_times)
+            record["data_wait_s"] = self._data_times[-1]
+        record["time"] = time.perf_counter()
         if extra:
             record.update(extra)
         print(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"

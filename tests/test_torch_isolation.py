@@ -30,7 +30,9 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
     and sys.modules[m] is not None)
 assert not leaked, leaked
 for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
-             "tools.bench_serve", "tools.bench_http"):
+             "tools.bench_serve", "tools.bench_http", "data.tfrecord",
+             "data.augment", "data.pipeline", "data.create_tfrecords",
+             "ops.distill", "train", "tools.bench_train", "utils.profiling"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
