@@ -49,6 +49,23 @@ any failure raises:
    JAX package's ``tests/goldens/predict_cells_v1.npz`` with its weights)
    served in f32: raw slices at the golden bars (atol 2e-4, rtol 2e-3) and
    detections set-equal to JAX's under the golden rule;
+   backbones_golden: ``ssd_tpu_torch/assets/backbones_golden_v1.npz``
+   (JAX's numbers for MobileNet-v2, EfficientNet-lite0, ShuffleNet-v2,
+   ResNet-50 and MobileNet-v1 with group norm, at full width, 128 px, 8
+   classes, f32, weights from ``convert.seeded_state``) on the card: raw
+   maps at the golden bars, detections under the golden set rule, step-0
+   loss terms within 1e-4, the gradient norm within 2e-3 of JAX's float64
+   truth and within 2e-3 plus JAX's own distance from that truth of JAX's;
+   serve_resnet50, serve_mobilenet_v2, serve_efficientnet_lite,
+   serve_shufflenet: each other shipped config at full width as the
+   flagship serve runs (b32/640; ShuffleNet b8/512), K1 held against the
+   plain ``batched_nms`` on the candidates of the path it serves;
+   select_anchors, fused_head: the flagship with ``select="anchors"`` and
+   with the fused 1x1 head, the same way; select_paths: the pyramid
+   selection through K1 on 4 batches, the fused head's ``fused_logit_max``
+   beside the cuDNN class conv it replaces, and Soft-NMS (linear,
+   gaussian) served with no K1 launch, timed beside K1 on the same
+   candidates, the card's result equal to the CPU's on two images;
    fused_early: the fused ds1+ds2 kernel, driven through its entry point
    (``ssd_tpu_torch.tools.bench_fused_early.run``) on the stem output of
    the served reference model (x1.0) on a 640 px batch of 32, with that
@@ -80,6 +97,11 @@ any failure raises:
    steps, with the matching launches of that run counted, the losses
    finite, one batch's kernel matches equal to the plain ones, and the
    exported ``.npz`` served by ``Predictor.from_npz``;
+   train_resnet50, train_mobilenet_v2, train_efficientnet_lite,
+   train_shufflenet: each other shipped config trained the same way at
+   its batch (64), 2 warm-up and 4 timed steps, its K2 launches counted,
+   K2 held against its plain version on one batch (ShuffleNet's at 512:
+   49 104 anchors), peak memory and step p50;
 9. train_pipeline: the shipped flagship trained through the CLI
    (``python -m ssd_tpu_torch.train`` in a subprocess) from tfrecords that
    the port's ``create_tfrecords`` writes from seeded crowded scenes (256
@@ -125,7 +147,8 @@ import torch
 
 from ssd_tpu_torch import _build
 from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
-from ssd_tpu_torch.convert import is_scale, load_npz_artifact, scale_name
+from ssd_tpu_torch.convert import (is_scale, load_npz_artifact, scale_name,
+                                   seeded_state)
 from ssd_tpu_torch.data import create_tfrecords, native, pipeline, synthetic
 from ssd_tpu_torch.data.resize import resize as plain_resize
 from ssd_tpu_torch.eval import sanity
@@ -138,7 +161,10 @@ from ssd_tpu_torch.ops import (box_utils, fused_early, fused_early_cuda,
                                ingest, losses, matching, matching_cuda, nms,
                                nms_cuda)
 from ssd_tpu_torch.ops.anchors import generate_anchors
-from ssd_tpu_torch.ops.postprocess import select_candidates_cells
+from ssd_tpu_torch.ops.fused_head import fused_logit_max, predict_params
+from ssd_tpu_torch.ops.postprocess import (postprocess_pyramid, run_nms,
+                                           select_candidates_cells,
+                                           select_candidates_pyramid)
 from ssd_tpu_torch.ops.targets import create_targets
 from ssd_tpu_torch.predictor import (Predictor, detection_rows,
                                      detections_arrays)
@@ -166,6 +192,22 @@ TRAIN_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
                             "train_golden_v1.npz")
 EVAL_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
                            "eval_golden_v1.npz")
+BACKBONES_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
+                                "backbones_golden_v1.npz")
+# the shipped configs of the other backbones (M9): name -> (config, the
+# serving batch: BASELINE's b8 for ShuffleNet at 512, b32 for the rest;
+# the training's gradient accumulation: the shipped ResNet-50 config, at
+# 1, runs out of the card's 80 GB in its b64/640 step, so it trains here
+# as 2 microbatches of 32, a setting the shipped config does not have)
+NEW_CONFIGS = {
+    "resnet50": ("coco_retinanet_resnet50_640.json", 32, 2),
+    "mobilenet_v2": ("coco_mobilenet_v2_640.json", 32, 1),
+    "efficientnet_lite": ("coco_efficientnet_lite0_640.json", 32, 1),
+    "shufflenet": ("coco_shufflenet_512.json", 8, 1),
+}
+GOLDEN_BARS = dict(atol=2e-4, rtol=2e-3)  # tests/test_golden.py's
+LOSS_RTOL = 1e-4  # step-0 loss terms against JAX's
+GRAD_NORM_RTOL = 2e-3  # step-0 gradient norm (train_sanity's bar)
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
@@ -605,14 +647,19 @@ def int8_checks(pred: Predictor, cfg: Config, batches: list,
 
 
 def phase_serve(phase: str, config: str, power_line: str,
-                int8: bool = False) -> int:
+                int8: bool = False, batch: int = 32,
+                cfg: Config | None = None) -> int:
     """A full-width config served through ``Predictor.predict``: 10 batches
-    of 32, a mixed-size list and a letterboxed request, with the NMS
-    launches of that run counted; returns them. ``int8``: the config in
-    int8 with ``int8_neck``, calibrated first (``calibrate_flagship``),
-    with ``int8_checks`` after."""
-    cfg = Config.load(config)
+    of ``batch``, a mixed-size list and a letterboxed request, with the NMS
+    launches of that run counted; returns them. ``cfg``: that config
+    changed (another selection path); ``config`` names its file. ``int8``:
+    the config in int8 with ``int8_neck``, calibrated first
+    (``calibrate_flagship``), with ``int8_checks`` after. The kernel is
+    held against the plain ``batched_nms`` on the candidates of the path
+    the detector serves (``Detector.candidates``)."""
+    cfg = Config.load(config) if cfg is None else cfg
     assert cfg.model.compute_dtype == "bfloat16"
+    assert cfg.nms.method == "hard"
     if int8:
         cfg = int8_config(cfg)
     pred = Predictor(cfg, None, device=DEVICE)  # weights seeded from 0
@@ -622,11 +669,11 @@ def phase_serve(phase: str, config: str, power_line: str,
     extra = calibrate_flagship(pred, cfg) if int8 else {}
     rng = np.random.default_rng(1)
     h, w = cfg.image_hw()
-    batches = [rng.integers(0, 256, (32, h, w, 3), dtype=np.uint8)
+    batches = [rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
                for _ in range(3)]
     mixed = [rng.integers(0, 256, s + (3,), dtype=np.uint8)
              for s in ((480, 640), (333, 517), (700, 1000))]
-    pred.warmup(32)
+    pred.warmup(batch)
     pred.predict(mixed)
     torch.cuda.synchronize()
 
@@ -638,7 +685,7 @@ def phase_serve(phase: str, config: str, power_line: str,
         t0 = time.perf_counter()
         out = pred.predict(batches[i % len(batches)])
         batch_ms.append((time.perf_counter() - t0) * 1e3)
-        _check_output(out, 32, cfg.nms.max_boxes)
+        _check_output(out, batch, cfg.nms.max_boxes)
     out_mixed = pred.predict(mixed)
     _check_output(out_mixed, 3, cfg.nms.max_boxes)
     pred.preserve_aspect = True
@@ -661,12 +708,12 @@ def phase_serve(phase: str, config: str, power_line: str,
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
 
-    # ---- kernel path vs plain batched_nms on one batch's raw maps
+    # ---- kernel path vs plain batched_nms on one batch's candidates, as
+    # this detector selects them
     det = pred.detector
+    trunk_only = cfg.model.head_final_kernel == 1
     with torch.inference_mode():
-        raw = det.model(feed)
-        boxes, scores = select_candidates_cells(raw, det.anchors,
-                                                cfg.num_classes, cfg.nms)
+        boxes, scores = det.candidates(feed)
         a = nms_cuda.batched_nms_cuda(boxes, scores, cfg.nms)
         b = nms.batched_nms(boxes, scores, cfg.nms)
         top_scores, _ = nms.class_topk(scores, cfg.nms)
@@ -677,11 +724,13 @@ def phase_serve(phase: str, config: str, power_line: str,
     live = int((top_scores[..., 0] > 0).sum())
     valid = int((top_scores > 0).sum())
 
-    # ---- where one batch's device time goes (CUDA events, warm)
+    # ---- where one batch's device time goes (CUDA events, warm): the
+    # forward (to the trunks for the fused head), the rest of selection,
+    # NMS
     with torch.inference_mode():
-        fwd = cuda_ms(lambda: det.model(feed), iters=5)
-        sel = cuda_ms(lambda: select_candidates_cells(
-            raw, det.anchors, cfg.num_classes, cfg.nms), iters=5)
+        fwd = cuda_ms(lambda: det.model(feed, trunk_only=trunk_only),
+                      iters=5)
+        sel = cuda_ms(lambda: det.candidates(feed), iters=5) - fwd
         post = cuda_ms(lambda: nms_cuda.batched_nms_cuda(
             boxes, scores, cfg.nms), iters=5)
 
@@ -690,18 +739,21 @@ def phase_serve(phase: str, config: str, power_line: str,
     extra["host_attribution"] = host_attribution(pred, batches[0])
     p50 = float(np.median(batch_ms))
     emit({"phase": phase, "config": os.path.relpath(config, ROOT),
+          "backbone": cfg.model.backbone, "norm": cfg.model.norm,
           "stem_schedule": cfg.model.stem_schedule,
+          "select": ("fused head" if trunk_only else cfg.nms.select),
+          "head_final_kernel": cfg.model.head_final_kernel,
           "feed": "packed s8" if pred._packed else "raw uint8",
           "dtype": cfg.model.compute_dtype,
-          "int8_neck": cfg.model.int8_neck, "batch": 32, "image": [h, w],
+          "int8_neck": cfg.model.int8_neck, "batch": batch, "image": [h, w],
           "anchors": cfg.num_anchors(), "weights": "seeded (seed 0)",
           "class_bias": FLAGSHIP_CLASS_BIAS,
-          "live_problems": live, "problems": 32 * cfg.num_classes,
+          "live_problems": live, "problems": batch * cfg.num_classes,
           "valid_candidates": valid, "num_boxes_mean":
               float(np.mean(out["num_boxes"])),
           "nms_launches": launches, "kernel_vs_plain_equal": True,
           "batch_ms": batch_ms, "p50_batch_ms": p50,
-          "img_per_s": 32 / p50 * 1e3,
+          "img_per_s": batch / p50 * 1e3,
           "device_ms": {"model": fwd, "select": sel, "nms": post},
           "host_ms": {"feed": feed_ms, "to_device": h2d_ms},
           "peak_mem_gib": peak_gb, **extra,
@@ -740,6 +792,246 @@ def phase_reference_golden() -> None:
           "num_boxes_equal": nb_equal, "matched": matched, "total": total})
     if matched != total or not nb_equal or total == 0:
         raise AssertionError(f"golden detections differ: {matched}/{total}")
+
+
+# ------------------------------------------------------------------ M9: the other backbones and paths
+
+def _grad_norm(det: Detector) -> float:
+    return float(torch.sqrt(sum(p.grad.double().square().sum()
+                                for p in det.model.parameters())))
+
+
+def phase_backbones_golden() -> tuple[int, int]:
+    """``assets/backbones_golden_v1.npz`` on the card in f32: each case's
+    seeded weights (``convert.seeded_state``), its raw maps at the golden
+    bars, its detections under the golden set rule, its step-0 loss terms
+    within 1e-4 of JAX's, and its gradient norm within 2e-3 of JAX's
+    float64 truth (JAX's f32 model run in f64) and within 2e-3 plus JAX's
+    own distance from that truth of JAX's
+    (``tests/test_torch_backbones_golden.py``). Returns the NMS and
+    matching launches."""
+    with np.load(BACKBONES_GOLDEN) as z:
+        arrays = {k: z[k] for k in z.files}
+    data = {k[len("batch/"):]: v for k, v in arrays.items()
+            if k.startswith("batch/")}
+    names = sorted({k.split("/")[0] for k in arrays} - {"batch"})
+    nms_cuda.launches = matching_cuda.launches = 0
+    rows = {}
+    for name in names:
+        case = {k[len(name) + 1:]: v for k, v in arrays.items()
+                if k.startswith(name + "/")}
+        cfg = Config.from_json(str(case["config_json"]))
+        det = Detector(cfg, seeded_state(cfg, int(case["seed"]),
+                                         float(case["class_bias"])),
+                       device=DEVICE)
+        raw = det.raw(data["images"])
+        raw_err = 0.0
+        for i, maps in enumerate(raw):
+            for part, got in zip(("cls", "box"), maps):
+                want = case[f"raw/{i}/{part}"]
+                got = got.float().cpu().numpy()
+                raw_err = max(raw_err, float(np.abs(got - want).max()))
+                if not np.allclose(got, want, **GOLDEN_BARS):
+                    raise AssertionError(f"{name} P{i + 3} {part}: raw maps "
+                                         f"off JAX's by {raw_err}")
+        out = det.predict(data["images"])
+        got = {k: getattr(out, k).cpu().numpy() for k in DET_KEYS}
+        want = {k: case[f"det/{k}"] for k in DET_KEYS}
+        matched, total = set_match(got, want)
+        nb_equal = bool((got["num_boxes"] == want["num_boxes"]).all())
+        if matched != total or not nb_equal or total == 0:
+            raise AssertionError(f"{name}: detections {matched}/{total}")
+        total_loss, metrics = det.loss(data)
+        total_loss.backward()
+        loss_dev = {k: abs(float(metrics[k]) / float(case[f"loss/{k}"]) - 1)
+                    for k in ("loss", "classification_loss",
+                              "localization_loss", "regularization_loss",
+                              "num_positives")}
+        if max(loss_dev.values()) > LOSS_RTOL:
+            raise AssertionError(f"{name}: loss terms off JAX's {loss_dev}")
+        norm = _grad_norm(det)
+        truth, jax_norm = float(case["grad_norm_f64"]), float(
+            case["grad_norm"])
+        gn = {"port": norm, "jax": jax_norm, "f64": truth,
+              "rel_to_f64": abs(norm / truth - 1),
+              "rel_to_jax": abs(norm / jax_norm - 1),
+              "jax_bar": GRAD_NORM_RTOL + abs(jax_norm / truth - 1)}
+        if (gn["rel_to_f64"] > GRAD_NORM_RTOL
+                or gn["rel_to_jax"] > gn["jax_bar"]):
+            raise AssertionError(f"{name}: gradient norm {gn}")
+        rows[name] = {"backbone": cfg.model.backbone, "norm": cfg.model.norm,
+                      "raw_max_abs_err": raw_err, "matched": matched,
+                      "total": total, "loss_rel_dev": loss_dev,
+                      "grad_norm": gn}
+        del det, raw, out, total_loss
+    launches = (nms_cuda.launches, matching_cuda.launches)
+    emit({"phase": "backbones_golden", "image": [128, 128],
+          "dtype": "float32", "cases": rows, "nms_launches": launches[0],
+          "match_launches": launches[1]})
+    if launches != (len(names), len(names)):
+        raise AssertionError(f"launches {launches} for {len(names)} cases")
+    return launches
+
+
+def _flagship_with(**nms_or_model) -> Config:
+    cfg = Config.load(FLAGSHIP)
+    model = {k: v for k, v in nms_or_model.items()
+             if hasattr(cfg.model, k)}
+    nms_kw = {k: v for k, v in nms_or_model.items() if k not in model}
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model),
+        nms=dataclasses.replace(cfg.nms, **nms_kw))
+
+
+def _hold_k1(boxes, scores, cfg: Config, what: str) -> None:
+    a = nms_cuda.batched_nms_cuda(boxes, scores, cfg.nms)
+    b = nms.batched_nms(boxes, scores, cfg.nms)
+    if not (torch.equal(a.num_boxes, b.num_boxes)
+            and torch.equal(a.labels, b.labels)
+            and float((a.scores - b.scores).abs().max()) <= 1e-6
+            and float((a.boxes - b.boxes).abs().max()) <= 1e-6):
+        raise AssertionError(f"{what}: kernel and plain NMS differ")
+
+
+def phase_select_paths(power_line: str) -> dict:
+    """The flagship at full width on its other paths: ``select="anchors"``
+    and the fused 1x1 head (``head_final_kernel=1``) served through
+    ``Predictor.predict`` (``phase_serve``); the pyramid selection
+    (``postprocess_pyramid`` on the model's maps); Soft-NMS, linear and
+    gaussian, through ``Predictor.predict`` with no K1 launch, its time
+    beside K1's on the same candidates and its card result equal to the
+    CPU's on two images. Also the fused head's ``fused_logit_max`` beside
+    the cuDNN class ``predict`` conv it replaces. Returns the NMS launches
+    by path."""
+    launches = {
+        "select_anchors": phase_serve("select_anchors", FLAGSHIP, power_line,
+                                      cfg=_flagship_with(select="anchors")),
+        "fused_head": phase_serve("fused_head", FLAGSHIP, power_line,
+                                  cfg=_flagship_with(head_final_kernel=1))}
+
+    cfg = Config.load(FLAGSHIP)
+    h, w = cfg.image_hw()
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, 256, (32, h, w, 3), dtype=np.uint8)
+               for _ in range(2)]
+    det = Detector(cfg, device=DEVICE)
+    with torch.no_grad():
+        det.model.head.class_net.predict.bias.fill_(FLAGSHIP_CLASS_BIAS)
+    feed = det.as_input(batches[0])
+    row = {"phase": "select_paths"}
+    with torch.inference_mode():
+        raw = det.raw(feed)
+        postprocess_pyramid(raw, det.anchors, cfg.num_classes, cfg.nms)
+        torch.cuda.synchronize()
+        nms_cuda.launches = 0
+        for i in range(4):
+            out = postprocess_pyramid(det.raw(batches[i % 2]), det.anchors,
+                                      cfg.num_classes, cfg.nms)
+            _check_output({k: getattr(out, k).cpu().numpy()
+                           for k in DET_KEYS}, 32, cfg.nms.max_boxes)
+        launches["select_pyramid"] = nms_cuda.launches
+        boxes, scores = select_candidates_pyramid(raw, det.anchors,
+                                                  cfg.num_classes, cfg.nms)
+        _hold_k1(boxes, scores, cfg, "pyramid")
+        row["pyramid"] = {
+            "batches": 4, "nms_launches": launches["select_pyramid"],
+            "kernel_vs_plain_equal": True,
+            "select_ms": cuda_ms(lambda: select_candidates_pyramid(
+                raw, det.anchors, cfg.num_classes, cfg.nms), iters=5),
+            "cells_select_ms": cuda_ms(lambda: select_candidates_cells(
+                raw, det.anchors, cfg.num_classes, cfg.nms), iters=5)}
+
+        # the class predict conv (cuDNN, 3x3 over each level's trunk) and
+        # the fused head's product + max over the same trunks with a 1x1
+        # kernel of its shape (the trunks' math is the same either way)
+        m = det.model
+        pyramid = m.fpn(m.backbone(m.backbone_input(feed),
+                                   torch.bfloat16))
+        trunks = [m.head.class_net.trunk(p) for p in pyramid]
+        cls_trunk, _ = m.head.trunks(pyramid)
+        k = cfg.anchors.num_anchors_per_cell
+        fused_det = Detector(_flagship_with(head_final_kernel=1),
+                             device=DEVICE)
+        w_cls, b_cls, _, _ = predict_params(fused_det.model.head)
+        conv = m.head.class_net.predict
+        row["fused_logit_max"] = {
+            "cells": cls_trunk.shape[1], "channels": cls_trunk.shape[2],
+            "ms": cuda_ms(lambda: fused_logit_max(cls_trunk, w_cls, b_cls,
+                                                  k), iters=5),
+            "cudnn_class_predict_3x3_ms": cuda_ms(
+                lambda: [conv(t) for t in trunks], iters=5),
+            "cudnn_class_predict_3x3_and_cell_max_ms": cuda_ms(
+                lambda: [conv(t).amax(dim=1) for t in trunks], iters=5)}
+        del fused_det, pyramid, trunks, cls_trunk
+
+    soft = {}
+    for method in ("soft_linear", "soft_gaussian"):
+        scfg = _flagship_with(method=method)
+        pred = Predictor(scfg, None, device=DEVICE)
+        with torch.no_grad():
+            pred.detector.model.head.class_net.predict.bias.fill_(
+                FLAGSHIP_CLASS_BIAS)
+        pred.warmup(32)
+        torch.cuda.synchronize()
+        nms_cuda.launches = 0
+        batch_ms = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            out = pred.predict(batches[i % 2])
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            _check_output(out, 32, scfg.nms.max_boxes)
+        if nms_cuda.launches:
+            raise AssertionError(f"{method}: {nms_cuda.launches} K1 launches")
+        sdet = pred.detector
+        with torch.inference_mode():
+            boxes, scores = sdet.candidates(sdet.as_input(batches[0]))
+            soft_ms = cuda_ms(lambda: run_nms(boxes, scores, scfg.nms),
+                              iters=3, warmup=1)
+            hard_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(
+                boxes, scores, cfg.nms), iters=5)
+            # the seeded model's scores are near-ties (a constant class
+            # bias), where an ulp of exp moves a pivot: reported only
+            served = [{k: getattr(d, k).cpu().numpy() for k in DET_KEYS}
+                      for d in (run_nms(boxes[:2], scores[:2], scfg.nms),
+                                run_nms(boxes[:2].cpu(), scores[:2].cpu(),
+                                        scfg.nms))]
+            # held: tie-free scores on clustered boxes, the card against
+            # the CPU
+            tb, ts = kernel_cases.clustered_problem(
+                np.random.default_rng(9), 2, 1024, cfg.num_classes)
+            on_card = run_nms(torch.from_numpy(tb).to(DEVICE),
+                              torch.from_numpy(ts).to(DEVICE), scfg.nms)
+            on_cpu = run_nms(torch.from_numpy(tb), torch.from_numpy(ts),
+                             scfg.nms)
+        err = {"scores": float((on_card.scores.cpu() - on_cpu.scores).abs()
+                               .max()),
+               "boxes": float((on_card.boxes.cpu() - on_cpu.boxes).abs()
+                              .max())}
+        if not (torch.equal(on_card.num_boxes.cpu(), on_cpu.num_boxes)
+                and torch.equal(on_card.labels.cpu(), on_cpu.labels)
+                and err["scores"] <= 1e-5 and err["boxes"] <= 1e-6):
+            raise AssertionError(f"{method}: the card's result differs from "
+                                 f"the CPU's on tie-free inputs: {err}")
+        matched, total = set_match(*served)
+        soft[method] = {"nms_launches": 0, "batch_ms": batch_ms,
+                        "p50_batch_ms": float(np.median(batch_ms)),
+                        "soft_nms_ms": soft_ms, "k1_hard_nms_ms": hard_ms,
+                        "num_boxes_mean": float(np.mean(out["num_boxes"])),
+                        "card_vs_cpu_tie_free": {
+                            "num_boxes": on_cpu.num_boxes.tolist(),
+                            "max_abs_err": err},
+                        "served_2_images_card_vs_cpu_matched": [matched,
+                                                                total]}
+        del pred, sdet
+    row["soft_nms"] = soft
+    row["nms_launches"] = launches
+    row["note"] = "flagship config, seeded weights, class bias " \
+        f"{FLAGSHIP_CLASS_BIAS}, b32/640 bf16, on {power_line}"
+    emit(row)
+    if launches["select_pyramid"] != 4:
+        raise AssertionError(f"pyramid: {launches['select_pyramid']} NMS "
+                             "launches, want 4")
+    return launches
 
 
 # ------------------------------------------------------------------ serving host path
@@ -1454,16 +1746,23 @@ class TimedBatches(synthetic.SceneBatches):
 
 
 def phase_train_flagship(power_line: str, warmup: int = 3,
-                         timed: int = 10) -> tuple[int, float]:
-    """``warmup + timed + 1`` steps through ``train()``: a step is timed
-    from its batch being ready to the next batch being asked for (its
-    metrics read back in between), so the last step, followed by the
-    loop's checkpoint and export, is run but not timed."""
-    cfg = Config.load(FLAGSHIP)
+                         timed: int = 10, config: str = FLAGSHIP,
+                         phase: str = "train_flagship",
+                         grad_accum_steps: int | None = None
+                         ) -> tuple[int, float]:
+    """``warmup + timed + 1`` steps of ``config`` (at its batch, full width
+    and depth; ``grad_accum_steps`` microbatches if given) through
+    ``train()``: a step is timed from its batch being ready to the next
+    batch being asked for (its metrics read back in between), so the last
+    step, followed by the loop's checkpoint and export, is run but not
+    timed."""
+    cfg = Config.load(config)
     assert cfg.model.compute_dtype == "bfloat16"
     # log every step: each step then ends in a readback of its metrics
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, log_every=1))
+        cfg.train, log_every=1, grad_accum_steps=(
+            cfg.train.grad_accum_steps if grad_accum_steps is None
+            else grad_accum_steps)))
     accum = max(cfg.train.grad_accum_steps, 1)
     h, w = cfg.image_hw()
     batches = TimedBatches(lambda i: synthetic.crowded_batch(
@@ -1508,7 +1807,10 @@ def phase_train_flagship(power_line: str, warmup: int = 3,
             *_plain_core(det.anchors, gt, num), num, cfg.matcher)
         if not torch.equal(m_kernel, m_plain):
             raise AssertionError("flagship batch: kernel matches differ")
-        breakdown = train_step_breakdown(det, cfg, b)
+        # the stages of one microbatch's step (the whole batch at 1)
+        micro = cfg.train.batch_size // accum
+        breakdown = train_step_breakdown(det, cfg, {
+            k: v[:micro] for k, v in b.items()})
         del det
 
         # the export serves
@@ -1522,7 +1824,8 @@ def phase_train_flagship(power_line: str, warmup: int = 3,
 
     timed_ms = step_ms[warmup:warmup + timed]
     p50 = float(np.median(timed_ms))
-    emit({"phase": "train_flagship", "config": os.path.relpath(FLAGSHIP, ROOT),
+    emit({"phase": phase, "config": os.path.relpath(config, ROOT),
+          "backbone": cfg.model.backbone,
           "dtype": "bfloat16", "batch": cfg.train.batch_size, "image": [h, w],
           "anchors": cfg.num_anchors(), "grad_accum_steps": accum,
           "optimizer": cfg.train.optimizer, "box_loss": cfg.losses.box_loss,
@@ -1959,10 +2262,23 @@ def main() -> int:
                                          power_line)
     nms_launches_pipelined = phase_serve_pipelined(power_line)
     phase_reference_golden()
+    nms_launches_bb, match_launches_bb = phase_backbones_golden()
+    nms_launches_new = {
+        f"serve_{name}": phase_serve(
+            f"serve_{name}", os.path.join(ROOT, "configs", path), power_line,
+            batch=batch)
+        for name, (path, batch, _) in NEW_CONFIGS.items()}
+    nms_launches_new.update(phase_select_paths(power_line))
     main_early, early_launches = phase_fused_early(power_line)
     main_match = phase_match()
     phase_train_sanity()
     match_launches, flagship_p50 = phase_train_flagship(power_line)
+    match_launches_new = {
+        f"train_{name}": phase_train_flagship(
+            power_line, warmup=2, timed=4,
+            config=os.path.join(ROOT, "configs", path),
+            phase=f"train_{name}", grad_accum_steps=accum)[0]
+        for name, (path, _, accum) in NEW_CONFIGS.items()}
     (match_launches_pipeline, nms_launches_train,
      nms_launches_eval_golden) = phase_train_pipeline(power_line, flagship_p50)
 
@@ -1972,7 +2288,8 @@ def main() -> int:
         "launches": (nms_launches + nms_launches_int8
                      + nms_launches_reference + nms_launches_int8_sanity
                      + nms_launches_golden + nms_launches_pipelined
-                     + nms_launches_train + nms_launches_eval_golden),
+                     + nms_launches_train + nms_launches_eval_golden
+                     + nms_launches_bb + sum(nms_launches_new.values())),
         "launches_by_path": {
             "flagship": nms_launches, "int8_flagship": nms_launches_int8,
             "reference_serve": nms_launches_reference,
@@ -1980,7 +2297,8 @@ def main() -> int:
             "serve_golden": nms_launches_golden,
             "serve_pipelined": nms_launches_pipelined,
             "train_pipeline": nms_launches_train,
-            "eval_golden": nms_launches_eval_golden},
+            "eval_golden": nms_launches_eval_golden,
+            "backbones_golden": nms_launches_bb, **nms_launches_new},
         "max_abs_err": main_nms["max_abs_err"], "ms": main_nms["ms"],
         "timing": main_nms["timing"], "call_ms": main_nms["call_ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
@@ -1989,9 +2307,12 @@ def main() -> int:
         "name": "match", "route": "cuda",
         "source": "ssd_tpu_torch/csrc/match.cu",
         "replaces": "ssd_tpu/ops/matching_pallas.py:60",
-        "launches": match_launches + match_launches_pipeline,
+        "launches": (match_launches + match_launches_pipeline
+                     + match_launches_bb + sum(match_launches_new.values())),
         "launches_by_path": {"train_flagship": match_launches,
-                             "train_pipeline": match_launches_pipeline},
+                             "train_pipeline": match_launches_pipeline,
+                             "backbones_golden": match_launches_bb,
+                             **match_launches_new},
         "max_abs_err": main_match["max_abs_err"], "ms": main_match["ms"],
         "timing": main_match["timing"], "call_ms": main_match["call_ms"],
         "plain_ms": main_match["plain_ms"],

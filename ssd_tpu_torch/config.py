@@ -59,19 +59,22 @@ class AnchorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    backbone: str = "mobilenet"  # the port builds mobilenet (v1) only
+    backbone: str = "mobilenet"  # mobilenet | mobilenet_v2 |
+    #                              efficientnet_lite | shufflenet | resnet50
     width_multiplier: float = 1.0
     fpn_channels: int = 128
     head_depth: int = 4  # number of 3x3 convs in each subnet
     head_channels: int = 0  # 0 -> same as fpn_channels
-    head_final_kernel: int = 3  # the port builds 3 only
+    # 3 = RetinaNet's; 1 makes the prediction a per-cell product, and
+    # predict then takes the fused head (ops/fused_head.py)
+    head_final_kernel: int = 3
     # Conv compute dtype: bfloat16 | float32 | int8. int8 is an inference
     # lowering of the same weights: the backbone's dense convs run int8 on
     # static ReLU6 scales; with ``int8_neck`` the FPN and head too, on
     # calibrated scales (``ssd_tpu_torch/quant.py``). Training runs bf16.
     compute_dtype: str = "bfloat16"
     int8_neck: bool = False
-    norm: str = "batch"  # the port builds "batch" only
+    norm: str = "batch"  # batch | group
     bn_momentum: float = 0.997
     stem_space_to_depth: bool = False
     remat_early: str = "none"
@@ -111,10 +114,10 @@ class NMSConfig:
     num_candidates: int = 1024  # anchors kept per image before NMS
     pre_nms_top_k: int = 128  # per-class candidates entering suppression
     use_pallas: bool | str = "auto"  # no effect in the port (see above)
-    method: str = "hard"  # the port builds "hard" only
+    method: str = "hard"  # hard | soft_linear | soft_gaussian
     soft_sigma: float = 0.5
-    # "cells": cell-major candidate selection (the port's path);
-    # "anchors": flat top-Q anchors (not ported yet).
+    # "cells": cell-major candidate selection (the shipped configs);
+    # "anchors" (any other value): flat top-Q anchors.
     select: str = "cells"
     approx_class_topk: bool = True  # exact in the port (see above)
     # Two-stage cell selection: prefilter

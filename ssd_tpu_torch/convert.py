@@ -98,6 +98,33 @@ def expected_state(target) -> dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in _module(target).state_dict().items()}
 
 
+def seeded_state(target, seed: int,
+                 class_bias: float | None = None) -> dict[str, torch.Tensor]:
+    """A state dict of seeded values for ``target`` (a Config or a module),
+    drawn by ``np.random.default_rng(seed)`` over ``expected_state(target)``
+    in sorted-name order, so that any machine draws the same values: conv
+    weights normal with std ``1/sqrt(fan_in)``, norm scales and running
+    variances uniform in [0.5, 1.5], biases and running means normal with
+    std 0.1. ``class_bias``: the class head's ``predict`` bias, every
+    entry. No calibrated scales."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, shape in sorted(expected_state(target).items()):
+        if is_scale(name):
+            continue
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight" and len(shape) == 4:
+            v = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[1:])), shape)
+        elif leaf in ("weight", "running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = rng.normal(0.0, 0.1, shape)
+        state[name] = torch.from_numpy(v.astype(np.float32))
+    if class_bias is not None:
+        state["head.class_net.predict.bias"].fill_(class_bias)
+    return state
+
+
 def convert_variables(variables: dict, target) -> dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) -> state dict (f32) for ``target``,
     a Config (the full model) or any module of the port."""

@@ -8,15 +8,22 @@ holds the model and the anchors on a device and runs
   updated), target creation with the matching kernel, the per-level (or
   flat) focal + box loss and L2, and with a teacher the distillation term
   -> ``(total, metrics)``;
-* ``predict``: the model in eval mode, cell-major candidate selection and
-  class-wise hard NMS, returning the public contract ``Detections(boxes,
-  scores, labels, num_boxes)``.
+* ``predict``: the model in eval mode, candidate selection and class-wise
+  NMS, returning the public contract ``Detections(boxes, scores, labels,
+  num_boxes)``. The dispatch is the JAX package's: a 1x1 final head conv
+  (``head_final_kernel=1``) takes the fused head (``ops/fused_head.py``),
+  else ``nms.select="cells"`` the cell-major selection, else the flat
+  logits and anchor-wise selection.
+
+Backbones (``model.backbone``): MobileNet-v1 (``mobilenet``, either stem
+schedule), MobileNet-v2, EfficientNet-lite, ShuffleNet-v2 and ResNet-50;
+``model.norm`` is ``"batch"`` or ``"group"``.
 
 ``compute_dtype="int8"`` is an inference lowering of the same weights: the
 backbone's dense convs run int8 on static ReLU6 scales, and with
 ``int8_neck`` the FPN and head too, on calibrated scales (``quant.py``)
 that the state dict carries beside the weights. Without ``int8_neck`` the
-FPN and head run bf16.
+FPN and head run bf16. The port builds int8 for MobileNet-v1 only.
 """
 
 from __future__ import annotations
@@ -30,16 +37,26 @@ from torch import nn
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.constants import MEAN_RGB, STD_RGB
 from ssd_tpu_torch.device import resolve_device
+from ssd_tpu_torch.models.efficientnet import EfficientNetLite
 from ssd_tpu_torch.models.fpn import FPN, RetinaHead, flatten_levels
-from ssd_tpu_torch.models.layers import (BatchNorm, Conv, QuantConv,
-                                         compute_dtype, space_to_depth)
+from ssd_tpu_torch.models.layers import (BatchNorm, Conv, GroupNorm,
+                                         QuantConv, compute_dtype,
+                                         space_to_depth)
 from ssd_tpu_torch.models.mobilenet import FoldedS2DConv, MobileNetV1
+from ssd_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from ssd_tpu_torch.models.resnet import ResNet50
+from ssd_tpu_torch.models.shufflenet import ShuffleNetV2
 from ssd_tpu_torch.ops import losses
 from ssd_tpu_torch.ops.distill import distillation_loss
 from ssd_tpu_torch.ops.anchors import generate_anchors
+from ssd_tpu_torch.ops.fused_head import fused_head_candidates
 from ssd_tpu_torch.ops.nms import Detections
-from ssd_tpu_torch.ops.postprocess import postprocess_cells
+from ssd_tpu_torch.ops.postprocess import (run_nms, select_candidates,
+                                           select_candidates_cells)
 from ssd_tpu_torch.ops.targets import create_targets
+
+BACKBONES = ("mobilenet", "mobilenet_v2", "efficientnet_lite", "shufflenet",
+             "resnet50")
 
 
 def normalize_images(images: torch.Tensor, mean: torch.Tensor | None = None,
@@ -56,28 +73,52 @@ def normalize_images(images: torch.Tensor, mean: torch.Tensor | None = None,
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on a configuration the port does not build yet."""
-    m, n = cfg.model, cfg.nms
+    """Raise on a configuration the JAX package refuses, or one the port
+    does not build yet: int8 on a backbone other than MobileNet-v1."""
+    m = cfg.model
+    if m.backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone: {m.backbone}")
+    if m.norm not in ("batch", "group"):
+        raise ValueError(f"unknown norm {m.norm!r}")
+    if m.compute_dtype not in ("bfloat16", "float32", "int8"):
+        raise NotImplementedError(
+            f"model.compute_dtype={m.compute_dtype!r}: the port builds "
+            "bfloat16, float32 and int8")
+    if m.stem_schedule not in ("dense4", "reference"):
+        raise ValueError(f"unknown stem_schedule {m.stem_schedule!r}")
+    if m.stem_schedule != "reference" and m.backbone != "mobilenet":
+        raise ValueError(
+            f"stem_schedule={m.stem_schedule!r} is mobilenet-v1 only")
     if m.stem_schedule == "dense4" and m.stem_space_to_depth:
         raise ValueError(
             "stem_schedule='dense4' already space-to-depth-packs the stem; "
             "stem_space_to_depth must stay False")
-    unsupported = [
-        (m.backbone != "mobilenet", f"model.backbone={m.backbone!r}"),
-        (m.stem_schedule not in ("dense4", "reference"),
-         f"model.stem_schedule={m.stem_schedule!r}"),
-        (m.norm != "batch", f"model.norm={m.norm!r}"),
-        (m.compute_dtype not in ("bfloat16", "float32", "int8"),
-         f"model.compute_dtype={m.compute_dtype!r}"),
-        (m.head_final_kernel != 3,
-         f"model.head_final_kernel={m.head_final_kernel}"),
-        (n.select != "cells", f"nms.select={n.select!r}"),
-        (n.method != "hard", f"nms.method={n.method!r}"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (see ROADMAP.md)")
+    if m.compute_dtype == "int8" and m.backbone != "mobilenet":
+        raise NotImplementedError(
+            f"model.compute_dtype='int8' with model.backbone="
+            f"{m.backbone!r} is not ported yet: int8 with a calibrated "
+            "int8_neck for the other backbones is M9b (see ROADMAP.md)")
+
+
+def build_backbone(cfg: Config) -> nn.Module:
+    """The backbone ``cfg.model`` names (the JAX package's
+    ``build_backbone``); each has ``out_channels`` (c3, c4, c5) and
+    ``forward(images, dtype) -> {"c3", "c4", "c5"}``."""
+    check_supported(cfg)
+    m = cfg.model
+    kw = dict(bn_momentum=m.bn_momentum, norm=m.norm,
+              stem_stride=1 if m.stem_space_to_depth else 2)
+    if m.backbone == "mobilenet":
+        return MobileNetV1(m.width_multiplier, m.stem_schedule,
+                           stem_fold_normalize=True,
+                           int8=m.compute_dtype == "int8", **kw)
+    if m.backbone == "mobilenet_v2":
+        return MobileNetV2(m.width_multiplier, **kw)
+    if m.backbone == "efficientnet_lite":
+        return EfficientNetLite(m.width_multiplier, **kw)
+    if m.backbone == "shufflenet":
+        return ShuffleNetV2(m.width_multiplier, **kw)
+    return ResNet50(**kw)
 
 
 class SSDModel(nn.Module):
@@ -93,16 +134,10 @@ class SSDModel(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         m = cfg.model
-        int8 = m.compute_dtype == "int8"
-        self.backbone = MobileNetV1(m.width_multiplier, m.stem_schedule,
-                                    stem_fold_normalize=True,
-                                    bn_momentum=m.bn_momentum,
-                                    stem_stride=1 if m.stem_space_to_depth
-                                    else 2, int8=int8)
-        neck = int8 and m.int8_neck
+        self.backbone = build_backbone(cfg)
+        neck = m.compute_dtype == "int8" and m.int8_neck
         self.fpn = FPN(self.backbone.out_channels, m.fpn_channels, neck)
         self.head = RetinaHead(
             m.fpn_channels, cfg.num_classes, cfg.anchors.num_anchors_per_cell,
@@ -133,13 +168,16 @@ class SSDModel(nn.Module):
             images = space_to_depth(images, 2)
         return images
 
-    def forward(self, images: torch.Tensor, raw_input: bool = True) -> list:
+    def forward(self, images: torch.Tensor, raw_input: bool = True,
+                trunk_only: bool = False):
         """images NHWC (uint8 or, for dense4, packed s8; normalized floats
         with ``raw_input=False``) -> ``[(cls (N, H, W, K*C), box (N, H, W,
-        K*4)), ...]`` in the compute dtype."""
+        K*4)), ...]`` in the compute dtype; with ``trunk_only`` the head's
+        ``(cls_trunk, box_trunk)``, each ``(N, cells, channels)``."""
         dtype = compute_dtype(self.cfg.model.compute_dtype)
         feats = self.backbone(self.backbone_input(images, raw_input), dtype)
-        return self.head(self.fpn(feats))
+        pyramid = self.fpn(feats)
+        return self.head.trunks(pyramid) if trunk_only else self.head(pyramid)
 
     def reset_parameters(self, seed: int) -> None:
         """Seeded init in the JAX package's scheme: conv kernels normal with
@@ -165,6 +203,9 @@ class SSDModel(nn.Module):
                     mod.bias.zero_()
                     mod.running_mean.zero_()
                     mod.running_var.fill_(1.0)
+                elif isinstance(mod, GroupNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
 
 
 class Detector:
@@ -264,7 +305,30 @@ class Detector:
         return self.model.eval()(self.as_input(images))
 
     @torch.inference_mode()
+    def candidates(self, images) -> tuple[torch.Tensor, torch.Tensor]:
+        """uint8 NHWC images (or the packed s8 feed) -> the candidates that
+        enter NMS, ``boxes (N, Q, 4)`` and ``scores (N, Q, C)``, selected as
+        the JAX package's ``Detector.predict`` dispatches: the fused head
+        (``head_final_kernel=1``), else the cells selection
+        (``nms.select="cells"``), else the flat anchor-wise one."""
+        cfg = self.cfg
+        if cfg.model.head_final_kernel == 1:
+            cls_trunk, box_trunk = self.model.eval()(self.as_input(images),
+                                                     trunk_only=True)
+            return fused_head_candidates(
+                cls_trunk, box_trunk, self.model.head, self.anchors,
+                cfg.num_classes, cfg.anchors.num_anchors_per_cell, cfg.nms)
+        raw = self.raw(images)
+        if cfg.nms.select == "cells":
+            return select_candidates_cells(raw, self.anchors,
+                                           cfg.num_classes, cfg.nms)
+        logits, deltas = flatten_levels(raw, cfg.num_classes)
+        return select_candidates(logits, deltas, self.anchors, cfg.nms)
+
+    @torch.inference_mode()
     def predict(self, images) -> Detections:
-        """uint8 NHWC images (or the packed s8 feed) -> NMS'd detections."""
-        return postprocess_cells(self.raw(images), self.anchors,
-                                 self.cfg.num_classes, self.cfg.nms)
+        """uint8 NHWC images (or the packed s8 feed) -> NMS'd detections:
+        ``candidates``, then hard NMS with the suppression kernel on the
+        card (its plain version on the CPU) or Soft-NMS
+        (``postprocess.run_nms``)."""
+        return run_nms(*self.candidates(images), self.cfg.nms)

@@ -5,7 +5,9 @@ P6 by a stride-2 conv on C5, P7 by a stride-2 conv on ReLU(P6). The class
 and box subnets are shared across levels. The head returns the per-level
 raw maps in the JAX package's layout, ``[(cls (N, H, W, K*C), box (N, H, W,
 K*4)), ...]``, channel ``k*C + c``; ``flatten_levels`` concatenates them
-into the flat ``(N, A, C)``/``(N, A, 4)`` outputs. The JAX package's
+into the flat ``(N, A, C)``/``(N, A, 4)`` outputs; ``RetinaHead.trunks``
+returns the subnets' trunks without the prediction convs, for the fused
+1x1 head (``ops/fused_head.py``). The JAX package's
 inference-only fusion barriers have no counterpart in eager PyTorch, so
 train and eval run the same code here.
 
@@ -88,10 +90,14 @@ class Subnet(nn.Module):
         self.predict = conv(channels if depth else in_ch, out_channels,
                             final_kernel)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``depth`` conv + ReLU layers alone (``trunk_only``)."""
         for i in range(self.depth):
             x = F.relu(getattr(self, f"conv{i}")(x))
-        return self.predict(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.predict(self.trunk(x))
 
 
 class RetinaHead(nn.Module):
@@ -112,6 +118,17 @@ class RetinaHead(nn.Module):
     def forward(self, pyramid: list) -> list:
         return [(self.class_net(p).permute(0, 2, 3, 1),
                  self.box_net(p).permute(0, 2, 3, 1)) for p in pyramid]
+
+    def trunks(self, pyramid: list) -> tuple[torch.Tensor, torch.Tensor]:
+        """The class and box trunks of every level, each ``(N, cells,
+        channels)`` with cells in (level, row, col) order (the JAX head's
+        ``trunk_only=True`` outputs)."""
+        def cells(t: torch.Tensor) -> torch.Tensor:
+            return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, t.shape[1])
+
+        return (torch.cat([cells(self.class_net.trunk(p)) for p in pyramid],
+                          1),
+                torch.cat([cells(self.box_net.trunk(p)) for p in pyramid], 1))
 
 
 def flatten_levels(raw: list, num_classes: int):

@@ -1,12 +1,13 @@
 """Shared building blocks: SAME-padded conv, batch norm (flax's semantics in
-train and eval mode), ConvBN, the MobileNet-v1 depthwise-separable block,
+train and eval mode), group norm (flax's), ConvBN, the MobileNet-v1
+depthwise-separable block, ShuffleNet's channel shuffle, a SAME max-pool,
 and the int8 inference conv ``QuantConv`` with its calibration mode.
 
 Layout is NCHW inside the model. Parameters live in f32; each conv casts its
 weight to the activation's dtype (bf16 or f32) when it runs, as flax does
 with ``param_dtype=float32`` and ``dtype=compute_dtype``. Module and
-parameter names follow the flax tree (``conv``, ``bn``, ``depthwise``,
-``pointwise``), so ``convert.py`` maps one to the other by path.
+parameter names follow the flax tree (``conv``, ``bn``, ``gn``,
+``depthwise``, ``pointwise``), so ``convert.py`` maps one to the other by path.
 
 int8 (``compute_dtype="int8"``, inference only): every dense conv runs
 s8 x s8 -> s32 through ``torch._int_mm`` (cuBLASLt's integer GEMM on the
@@ -153,6 +154,70 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def num_groups(channels: int, target: int = 32) -> int:
+    """Largest divisor of ``channels`` that is <= ``target`` (the JAX
+    package's ``_num_groups``): 32 for 128, 24 for 24, 29 for 116."""
+    g = min(target, channels)
+    while channels % g:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """Group norm in the order flax's ``GroupNorm`` computes it.
+
+    The statistics of each image and group of ``C / G`` channels
+    (``G = num_groups(C)``) over (H, W, C/G) in f32, with the fast, biased
+    variance ``max(0, E[x^2] - E[x]^2)`` (``torch.group_norm`` takes a
+    two-pass variance, which differs); then, per channel, ``y = (x - mean)
+    * (rsqrt(var + eps) * scale) + bias`` in f32, rounded once to the
+    input's dtype. No running statistics: train and eval mode are the same
+    function.
+    """
+
+    def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON):
+        super().__init__()
+        self.groups = num_groups(channels)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        xf = x.float()
+        xg = xf.reshape(n, self.groups, -1)
+        mean = xg.mean(dim=-1)
+        var = torch.maximum(xg.square().mean(dim=-1) - mean.square(),
+                            mean.new_zeros(()))
+        size = c // self.groups
+        mean = mean.repeat_interleave(size, dim=1)  # (N, C)
+        var = var.repeat_interleave(size, dim=1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[..., None, None]) * mul[..., None, None]
+        return (y + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
+def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
+    """ShuffleNet's channel shuffle on NCHW: output channel ``j * groups +
+    i`` is input channel ``i * (C / groups) + j`` (the JAX package's NHWC
+    reshape to ``(groups, C / groups)`` and swap)."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, groups, c // groups, h, w).transpose(1, 2)
+    return x.reshape(n, c, h, w)
+
+
+def max_pool_same(x: torch.Tensor, kernel: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """``nn.max_pool(x, (k, k), (s, s), "SAME")`` on NCHW: XLA's SAME split
+    (0 before and 1 after for 3/2 on an even input), padded with -inf, then
+    an unpadded pool (``padding=1`` would pad both sides and shift every
+    output)."""
+    ph = same_pad(x.shape[-2], kernel, stride)
+    pw = same_pad(x.shape[-1], kernel, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=-math.inf)
+    return F.max_pool2d(x, kernel, stride)
 
 
 # ---------------------------------------------------------------- int8
@@ -418,11 +483,13 @@ class QuantConv(Conv):
 
 
 class ConvBN(nn.Module):
-    """Conv, then batch norm (or the conv's own bias), then an activation.
+    """Conv, then a norm (or the conv's own bias), then an activation.
 
-    ``act``: ``"relu6"`` | ``"relu"`` | ``None``. ``quant``: a dense
-    (``groups == 1``) conv is a ``QuantConv`` (int8 inference) with this
-    ``act_range`` and ``require_scale``; a depthwise one stays ``Conv``.
+    ``norm``: ``"batch"`` (the module ``bn``) or ``"group"`` (``gn``, as
+    the flax tree names them). ``act``: ``"relu6"`` | ``"relu"`` |
+    ``None``. ``quant``: a dense (``groups == 1``) conv is a ``QuantConv``
+    (int8 inference) with this ``act_range`` and ``require_scale``; a
+    depthwise one stays ``Conv``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
@@ -430,7 +497,7 @@ class ConvBN(nn.Module):
                  act: str | None = "relu6",
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
                  quant: bool = False, act_range: float = 6.0,
-                 require_scale: bool = False):
+                 require_scale: bool = False, norm: str = "batch"):
         super().__init__()
         if quant and groups == 1:
             self.conv = QuantConv(in_ch, out_ch, kernel, stride,
@@ -439,13 +506,19 @@ class ConvBN(nn.Module):
         else:
             self.conv = Conv(in_ch, out_ch, kernel, stride, groups,
                              bias=not use_norm)
-        self.bn = BatchNorm(out_ch, momentum=bn_momentum) if use_norm else None
+        self.bn = self.gn = None
+        if use_norm and norm == "group":
+            self.gn = GroupNorm(out_ch)
+        elif use_norm:
+            self.bn = BatchNorm(out_ch, momentum=bn_momentum)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
+        elif self.gn is not None:
+            x = self.gn(x)
         return activation(x, self.act)
 
 
@@ -466,12 +539,12 @@ class DepthwiseSeparable(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 quant: bool = False):
+                 quant: bool = False, norm: str = "batch"):
         super().__init__()
         self.depthwise = ConvBN(in_ch, in_ch, 3, stride, groups=in_ch,
-                                bn_momentum=bn_momentum)
+                                bn_momentum=bn_momentum, norm=norm)
         self.pointwise = ConvBN(in_ch, out_ch, 1, bn_momentum=bn_momentum,
-                                quant=quant)
+                                quant=quant, norm=norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))

@@ -27,9 +27,9 @@ from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_MOMENTUM, MEAN_RGB, STD_RGB
 from ssd_tpu_torch.models.layers import (BatchNorm, ConvBN,
-                                         DepthwiseSeparable, activation,
-                                         conv_int8, quantize_weight,
-                                         space_to_depth)
+                                         DepthwiseSeparable, GroupNorm,
+                                         activation, conv_int8,
+                                         quantize_weight, space_to_depth)
 
 
 def _width(ch: int, multiplier: float) -> int:
@@ -176,21 +176,27 @@ class Int8FoldedS2DConv(FoldedS2DConv):
 
 
 class Dense4Stem(nn.Module):
-    """dense4 early schedule: image -> (N, features, H/4, W/4), BN + ReLU6."""
+    """dense4 early schedule: image -> (N, features, H/4, W/4), norm (``bn``,
+    or ``gn`` with ``norm="group"``) + ReLU6."""
 
     def __init__(self, features: int, fold_normalize: bool = False,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 int8: bool = False):
+                 int8: bool = False, norm: str = "batch"):
         super().__init__()
         if int8 and not fold_normalize:
             raise NotImplementedError(
                 "the int8 dense4 stem takes raw pixels (fold_normalize)")
         self.conv = (Int8FoldedS2DConv(features) if int8
                      else FoldedS2DConv(features, fold_normalize))
-        self.bn = BatchNorm(features, momentum=bn_momentum)
+        self.bn = self.gn = None
+        if norm == "group":
+            self.gn = GroupNorm(features)
+        else:
+            self.bn = BatchNorm(features, momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return activation(self.bn(self.conv(x, dtype)), "relu6")
+        norm = self.bn if self.bn is not None else self.gn
+        return activation(norm(self.conv(x, dtype)), "relu6")
 
 
 class MobileNetV1(nn.Module):
@@ -200,28 +206,31 @@ class MobileNetV1(nn.Module):
     ``stem_stride=2`` or space-to-depth(2)-packed ``(N, H/2, W/2, 12)`` with
     ``stem_stride=1``; they are cast to ``dtype`` first. ``dense4``: raw
     uint8 images or the packed s8 feed (``Dense4Stem``). ``int8``: the
-    dense convs are quantized (module docstring).
+    dense convs are quantized (module docstring). ``norm``: ``"batch"`` or
+    ``"group"``, in every block.
     """
 
     def __init__(self, width_multiplier: float = 1.0,
                  stem_schedule: str = "dense4",
                  stem_fold_normalize: bool = False,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 stem_stride: int = 2, int8: bool = False):
+                 stem_stride: int = 2, int8: bool = False,
+                 norm: str = "batch"):
         super().__init__()
         w = lambda ch: _width(ch, width_multiplier)  # noqa: E731
         self.stem_schedule = stem_schedule
         if stem_schedule == "dense4":
             self.stem = Dense4Stem(w(128), stem_fold_normalize,
-                                   bn_momentum, int8)  # /4
+                                   bn_momentum, int8, norm)  # /4
         elif stem_schedule == "reference":
             # act_range 3: the stem's input is the normalized image
             self.stem = ConvBN(3 if stem_stride == 2 else 12, w(32), 3,
                                stem_stride, bn_momentum=bn_momentum,
-                               quant=int8, act_range=3.0)  # /2
-            self.ds1 = DepthwiseSeparable(w(32), w(64), 1, bn_momentum, int8)
+                               quant=int8, act_range=3.0, norm=norm)  # /2
+            self.ds1 = DepthwiseSeparable(w(32), w(64), 1, bn_momentum, int8,
+                                          norm)
             self.ds2 = DepthwiseSeparable(w(64), w(128), 2, bn_momentum,
-                                          int8)  # /4
+                                          int8, norm)  # /4
         else:
             raise ValueError(f"unknown stem_schedule {stem_schedule!r}")
         table = [("ds3", 128, 1), ("ds4", 256, 2), ("ds5", 256, 1),
@@ -230,7 +239,7 @@ class MobileNetV1(nn.Module):
         in_ch = w(128)
         for name, ch, stride in table:
             self.add_module(name, DepthwiseSeparable(in_ch, w(ch), stride,
-                                                     bn_momentum, int8))
+                                                     bn_momentum, int8, norm))
             in_ch = w(ch)
         self.out_channels = (w(256), w(512), w(1024))
 

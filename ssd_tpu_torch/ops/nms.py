@@ -1,15 +1,21 @@
-"""Batched class-wise greedy NMS in plain PyTorch.
+"""Batched class-wise NMS in plain PyTorch: greedy (hard) and Soft-NMS.
 
-This is the plain version of the suppression kernel in ``nms_cuda.py``: the
-CPU path, and the version the kernel is held against on the card. It follows
-``ssd_tpu/ops/nms.py`` (``batched_nms`` with ``method="hard"``):
+Hard NMS here is the plain version of the suppression kernel in
+``nms_cuda.py``: the CPU path, and the version the kernel is held against
+on the card. Soft-NMS has no kernel, in the JAX package either
+(``ssd_tpu/ops/postprocess.py`` ``_nms`` sends every method but "hard" to
+jnp), so this plain version is its port on every device. Both follow
+``ssd_tpu/ops/nms.py`` ``batched_nms``:
 
   1. score threshold, then per-class top-k (``pre_nms_top_k``) over the
      shared candidates, lower index first among equal scores;
-  2. greedy suppression over the K score-sorted candidates of every
-     (image, class) problem at once;
-  3. merge classes: global top-``max_boxes`` over the C*K survivors, with
-     only the winners' boxes gathered.
+  2. hard: greedy suppression over the K score-sorted candidates of every
+     (image, class) problem at once; soft (``soft_linear``,
+     ``soft_gaussian``): K sequential pivots decay the scores of the
+     unprocessed candidates (``soft_suppression_scores``);
+  3. merge classes: global top-``max_boxes`` over the C*K survivors; hard
+     gathers only the winners' boxes, soft gathers them from the per-class
+     boxes, as the JAX package does.
 
 Output: ``Detections(boxes (N, max_boxes, 4), scores (N, max_boxes),
 labels (N, max_boxes), num_boxes (N,))``, zero past ``num_boxes`` (labels
@@ -96,16 +102,74 @@ def suppress(boxes: torch.Tensor, top_idx: torch.Tensor,
     return torch.where(keep, top_scores, top_scores.new_full((), -1.0))
 
 
+def soft_suppression_scores(boxes: torch.Tensor, scores: torch.Tensor,
+                            cfg: NMSConfig) -> torch.Tensor:
+    """Soft-NMS (Bodla et al. 2017) score decay over ``(..., K)`` problems.
+
+    ``boxes (..., K, 4)``; ``scores (..., K)``, invalid candidates at -1.
+    Each of K steps takes the first-occurrence argmax of the unprocessed
+    scores as the pivot; if its score is positive, every other unprocessed
+    candidate's score is multiplied by ``1 - iou`` where its IoU with the
+    pivot is over ``iou_threshold`` (``soft_linear``), or by ``exp(-iou^2
+    / soft_sigma)`` (``soft_gaussian``). Returns the decayed scores, those
+    under ``score_threshold`` set to -1.
+    """
+    k = boxes.shape[-2]
+    gaussian = cfg.method == "soft_gaussian"
+    lane = torch.arange(k, device=boxes.device)
+    neg_inf = scores.new_full((), -float("inf"))
+    one = scores.new_full((), 1.0)
+    s = scores
+    processed = torch.zeros_like(scores, dtype=torch.bool)
+    for _ in range(k):
+        pivot_idx = torch.where(processed, neg_inf, s).argmax(dim=-1)
+        pivot_score = torch.gather(s, -1, pivot_idx[..., None])[..., 0]
+        pivot_box = torch.gather(
+            boxes, -2, pivot_idx[..., None, None].expand(
+                *pivot_idx.shape, 1, 4))
+        ious = box_utils.iou(pivot_box, boxes)[..., 0, :]
+        if gaussian:
+            decay = torch.exp(-(ious * ious) / f32(cfg.soft_sigma))
+        else:
+            decay = torch.where(ious > f32(cfg.iou_threshold), 1.0 - ious,
+                                one)
+        is_pivot = lane == pivot_idx[..., None]
+        untouched = processed | is_pivot | ~(pivot_score > 0.0)[..., None]
+        s = torch.where(untouched, s, s * decay)
+        processed = processed | is_pivot
+    return torch.where(s >= f32(cfg.score_threshold), s,
+                       s.new_full((), -1.0))
+
+
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 cfg: NMSConfig) -> Detections:
-    """Class-wise hard NMS. ``boxes (N, Q, 4)`` decoded and clipped,
-    ``scores (N, Q, C)`` post-sigmoid, both f32."""
-    if cfg.method != "hard":
-        raise NotImplementedError(
-            f"nms.method={cfg.method!r}: only 'hard' is ported")
+    """Class-wise NMS, hard or soft (``cfg.method``). ``boxes (N, Q, 4)``
+    decoded and clipped, ``scores (N, Q, C)`` post-sigmoid, both f32."""
     top_scores, top_idx = class_topk(scores, cfg)
+    if cfg.method != "hard":
+        n, c, k = top_idx.shape
+        flat = top_idx.reshape(n, c * k).long()
+        top_boxes = torch.gather(
+            boxes, 1, flat[..., None].expand(n, c * k, 4)).reshape(n, c, k, 4)
+        valid = top_scores > 0.0
+        kept = soft_suppression_scores(
+            top_boxes, torch.where(valid, top_scores,
+                                   top_scores.new_full((), -1.0)), cfg)
+        return merge_classes(top_boxes, kept, cfg)
     kept = suppress(boxes, top_idx, top_scores, cfg.iou_threshold)
     return merge_classes_lazy(boxes, top_idx, kept, cfg)
+
+
+def merge_classes(top_boxes: torch.Tensor, kept_scores: torch.Tensor,
+                  cfg: NMSConfig) -> Detections:
+    """Global top-``max_boxes`` over the per-class survivors, the winners'
+    boxes gathered from the per-class boxes ``top_boxes (N, C, K, 4)``."""
+    n, c, k, _ = top_boxes.shape
+    flat_boxes = top_boxes.reshape(n, c * k, 4)
+    return _merge_flat(
+        lambda final_idx: torch.gather(
+            flat_boxes, 1, final_idx[..., None].expand(*final_idx.shape, 4)),
+        kept_scores, cfg)
 
 
 def merge_classes_lazy(cand_boxes: torch.Tensor, top_idx: torch.Tensor,

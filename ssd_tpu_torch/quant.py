@@ -19,6 +19,9 @@ calibrated model serves its backbone on calibrated scales as well.
         [--batch-size 8] [--batches 8] [--percentile 99.9] \\
         [--backbone-only] [--device cpu]
 
+The port quantizes MobileNet-v1 only; int8 for the other backbones, with
+a calibrated neck, is ROADMAP.md's M9b.
+
 ``--data`` draws the calibration batches from a tfrecord glob through the
 input pipeline in eval mode (``data.pipeline.Pipeline``), at the model's
 image size.
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ssd_tpu_torch.convert import load_npz_artifact, save_npz_artifact
-from ssd_tpu_torch.models.detector import Detector
+from ssd_tpu_torch.models.detector import Detector, check_supported
 from ssd_tpu_torch.models.layers import calibrating
 
 
@@ -60,9 +63,13 @@ def calibrate(det: Detector, batches, percentile: float | None = None) -> int:
 
 
 def int8_config(cfg, int8_neck: bool = True):
-    """``cfg`` with ``compute_dtype="int8"`` and ``int8_neck``."""
-    return dataclasses.replace(cfg, model=dataclasses.replace(
+    """``cfg`` with ``compute_dtype="int8"`` and ``int8_neck``. The port
+    quantizes MobileNet-v1 only: another backbone raises (int8 with a
+    calibrated neck for them is ROADMAP.md's M9b)."""
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype="int8", int8_neck=int8_neck))
+    check_supported(qcfg)
+    return qcfg
 
 
 def quantize_artifact(npz_in: str, npz_out: str, batches,

@@ -1,0 +1,415 @@
+"""The port's MobileNet-v2, EfficientNet-lite, ShuffleNet-v2 and ResNet-50
+against the JAX package's, on the CPU.
+
+Each backbone at the widths of the JAX package's
+``test_all_backbones_forward`` (``mobilenet_v2`` 0.25, ``efficientnet_lite``
+0.25, ``shufflenet`` 0.5, ``resnet50`` 1.0), in the whole detector at 64
+px: 8 classes, FPN 32, head depth 1, seeded weights poured into JAX's tree
+and converted by ``convert.py``. Held here:
+
+* every leaf of the JAX tree converts and nothing is left unfilled;
+* the raw head maps in eval and train mode, on seeded uniform images: f32
+  in eval mode at the golden bars (atol 2e-4, rtol 2e-3). In train mode
+  against the float64 truth, JAX's own model run in f64 (``jax_float64``):
+  the port's f32 maps within 1e-4 of it in rel-L2 and no further from it
+  than JAX's f32 maps are; JAX's f32 maps within ``JAX_F32_MAPS`` of it
+  (the bar on JAX's own f32 noise, read at 2.8e-5 to 1.7e-4 on these
+  cases); and the port's maps within 1e-4 plus that bar of JAX's f32 maps
+  (JAX's largest element error from its f64 maps is 2e-3, so no element
+  bar holds against JAX in train mode);
+* bf16, relative to JAX's own bf16 error: every conv rounds to bf16 in an
+  order of its framework's, and the batch norm amplifies it (in train mode
+  the batch statistics of channels that ReLU6 saturates are bf16
+  quantization noise: JAX's own bf16 maps are 20-30% off its f32 ones in
+  rel-L2 here, 1% in eval mode). The bars: the port's bf16 maps no further
+  from JAX's f32 maps than 1.25x JAX's bf16 maps are, and closer to JAX's
+  bf16 maps than JAX's bf16 maps are to its f32 ones. JAX runs op by op
+  there, as ``tests/test_torch_model.py`` does (under jit XLA keeps excess
+  precision between fused bf16 ops);
+* one f32 train-mode loss on a crowded batch: each term within 1e-4
+  relative, num_positives equal; the FPN and head gradients by cosine >=
+  0.9998 with JAX's, as ``tests/test_torch_reference.py`` holds the
+  reference schedule. The backbone's gradient is held to the float64
+  truth, JAX's gradient computed in f64: cosine >= 0.9998, and at least as
+  close as JAX's f32 gradient is. JAX's own f32 backbone gradient misses
+  that bar (1 - cosine with its f64 one read at 2.9e-6 to 2.0e-3, the
+  largest for MobileNet-v2 and ResNet-50): flax's fast variance ``E[x^2] -
+  E[x]^2`` cancels in channels whose mean is large against their spread,
+  and the two frameworks sum its terms in another order (ROADMAP.md
+  section 3). So the port's f32 gradient is held to JAX's f32 one at the
+  angle the two noises allow: ``JAX_F32_GRAD`` (the bar on 1 - cosine of
+  JAX's f32 with its f64 gradient, asserted too) and the port's own 2e-4
+  added as angles. The same cancellation is why the maps are compared on
+  uniform images: on the crowded batch's dark scenes JAX's f32 maps are
+  further off.
+"""
+
+import contextlib
+import json
+import math
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+if __name__ == "__main__":  # readings: JAX on the CPU, as conftest.py sets
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+from ssd_tpu.config import Config as JaxConfig  # noqa: E402
+from ssd_tpu.models.detector import Detector as JaxDetector  # noqa: E402
+from ssd_tpu_torch.config import Config  # noqa: E402
+from ssd_tpu_torch.convert import (convert_params,  # noqa: E402
+                                   convert_variables, expected_state)
+from ssd_tpu_torch.data import synthetic  # noqa: E402
+from ssd_tpu_torch.models.detector import Detector  # noqa: E402
+from tests.test_torch_model import seeded_variables  # noqa: E402
+
+GOLDEN_BARS = dict(atol=2e-4, rtol=2e-3)
+# The test run puts several worker processes on the host's cores; torch's
+# own pool of one thread a core in each of them spins against the others
+# and multiplies the CPU time these heavy modules take.
+TORCH_THREADS = 1
+BF16_NOISE_RATIO = 1.25
+GRAD_COS = 0.9998
+TRAIN_F32_REL = 1e-4
+# Bars on JAX's own f32 noise against its f64 truth, above what these
+# cases read: train-mode maps in rel-L2, the backbone gradient in 1 -
+# cosine.
+JAX_F32_MAPS = 2e-4
+JAX_F32_GRAD = 2.5e-3
+PORT_JAX_GRAD_COS = 1 - (math.sqrt(1 - GRAD_COS)
+                         + math.sqrt(JAX_F32_GRAD)) ** 2
+SIZE = 64
+CASES = {
+    "mobilenet_v2": dict(backbone="mobilenet_v2", width_multiplier=0.25),
+    "efficientnet_lite": dict(backbone="efficientnet_lite",
+                              width_multiplier=0.25),
+    "shufflenet": dict(backbone="shufflenet", width_multiplier=0.5),
+    "resnet50": dict(backbone="resnet50", width_multiplier=1.0),
+}
+
+
+def small_dict(model: dict, dtype: str = "float32", size: int = SIZE,
+               **top) -> dict:
+    return dict(image_size=size, num_classes=8,
+                model=dict(fpn_channels=32, head_depth=1, bn_momentum=0.9,
+                           compute_dtype=dtype, **model),
+                data=dict(max_gt_boxes=12), **top)
+
+
+def configs(model: dict, dtype: str = "float32", **kw):
+    d = small_dict(model, dtype, **kw)
+    return JaxConfig.from_dict(d), Config.from_dict(d)
+
+
+def seeded(jcfg, seed: int = 0) -> dict:
+    abstract = jax.eval_shape(
+        lambda: JaxDetector(jcfg).init(jax.random.PRNGKey(0)))
+    return seeded_variables(abstract, seed)
+
+
+def batch(n: int = 2, size: int = SIZE, seed: int = 7) -> dict:
+    rng = np.random.default_rng(seed)
+    return synthetic.pad_batch(
+        [synthetic.crowded_example(rng, 8, size, 3, 12) for _ in range(n)],
+        12)
+
+
+@contextlib.contextmanager
+def jax_float64():
+    """The JAX package's "float32" models computing in float64: x64 on, and
+    the dtype its ``_dtype`` gives for "float32" made float64 in each of
+    its modules that calls it. Feed it float64 variables (``f64_tree``).
+    The losses still cast the head's maps to f32, so only the maps'
+    gradient is rounded to f32 on its way back."""
+    from ssd_tpu.models import fpn, layers as jax_layers, mobilenet
+    f32 = jax_layers._dtype
+    modules = (jax_layers, fpn, mobilenet)
+    for m in modules:
+        m._dtype = lambda name: (jax.numpy.float64 if name == "float32"
+                                 else f32(name))
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        for m in modules:
+            m._dtype = f32
+
+
+def f64_tree(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+
+
+def jax_raw(jdet, variables, images, train: bool, jit: bool = False
+            ) -> np.ndarray:
+    """JAX's raw maps, all levels concatenated flat, f32."""
+    def apply(v, x):
+        if train:
+            return jdet.model.apply(v, x, train=True, flatten=False,
+                                    raw_input=True,
+                                    mutable=["batch_stats"])[0]
+        return jdet.model.apply(v, x, train=False, flatten=False,
+                                raw_input=True)
+
+    raw = (jax.jit(apply) if jit else apply)(variables, images)
+    return np.concatenate([np.asarray(a, np.float32).ravel()
+                           for level in raw for a in level])
+
+
+def port_raw(det, images, train: bool) -> np.ndarray:
+    with torch.no_grad():
+        raw = det.model.train(train)(torch.from_numpy(images))
+    return np.concatenate([a.float().numpy().ravel()
+                           for level in raw for a in level])
+
+
+def rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def grad_cos(a: dict, b: dict, prefix: str) -> float:
+    keys = [k for k in a if k.startswith(prefix)]
+    x = torch.cat([a[k].flatten() for k in keys]).double()
+    y = torch.cat([b[k].flatten() for k in keys]).double()
+    return float(x @ y / (x.norm() * y.norm()))
+
+
+class Case:
+    """A model variant in both frameworks on shared seeded weights, JAX's
+    outputs computed once."""
+
+    def __init__(self, model: dict, seed: int = 0):
+        self.model = model
+        self.jcfg, self.cfg = configs(model)
+        self.variables = seeded(self.jcfg, seed)
+        self.images = np.random.default_rng(seed).integers(
+            0, 256, (2, SIZE, SIZE, 3)).astype(np.uint8)
+        self._jax = {}
+
+    def port(self, dtype: str = "float32") -> Detector:
+        _, cfg = configs(self.model, dtype)
+        return Detector(cfg, convert_variables(self.variables, cfg),
+                        device="cpu")
+
+    def jax_raw(self, dtype: str, train: bool) -> np.ndarray:
+        """JAX's maps in ``dtype``; "float64" is the f32 model run in f64
+        (``jax_float64``)."""
+        key = (dtype, train)
+        if key not in self._jax:
+            if dtype == "float64":
+                with jax_float64():
+                    self._jax[key] = jax_raw(
+                        JaxDetector(self.jcfg), f64_tree(self.variables),
+                        self.images, train, jit=True)
+            else:
+                jdet = JaxDetector(configs(self.model, dtype)[0])
+                self._jax[key] = jax_raw(jdet, self.variables, self.images,
+                                         train, jit=dtype == "float32")
+        return self._jax[key]
+
+    def jax_loss(self, data: dict, f64: bool = False):
+        """JAX's f32 loss metrics and gradients; with ``f64`` the f32 model
+        run in float64 (``jax_float64``)."""
+        jdet = JaxDetector(self.jcfg)
+        variables = f64_tree(self.variables) if f64 else self.variables
+
+        def loss_fn(params):
+            return jdet.loss(dict(variables, params=params), data)
+
+        with jax_float64() if f64 else contextlib.nullcontext():
+            (_, (metrics, _)), grads = jax.jit(jax.value_and_grad(
+                loss_fn, has_aux=True))(variables["params"])
+            return jax.device_get((metrics, grads))
+
+
+def check_f32(case: Case, train: bool) -> dict:
+    """Eval mode: JAX's maps at the golden bars. Train mode: within 1e-4
+    of JAX's f64 truth in rel-L2 and no further from it than JAX's f32 maps
+    are, and within 1e-4 plus JAX's own f32 noise of JAX's f32 maps."""
+    got = port_raw(case.port(), case.images, train)
+    want = case.jax_raw("float32", train)
+    if not train:
+        np.testing.assert_allclose(got, want, **GOLDEN_BARS)
+        return {}
+    truth = case.jax_raw("float64", True)
+    errs = {"port_truth": rel(got, truth), "jax_truth": rel(want, truth),
+            "port_jax": rel(got, want)}
+    assert errs["port_truth"] <= TRAIN_F32_REL, errs
+    assert errs["port_truth"] <= errs["jax_truth"], errs
+    assert errs["jax_truth"] <= JAX_F32_MAPS, errs
+    assert errs["port_jax"] <= TRAIN_F32_REL + JAX_F32_MAPS, errs
+    return errs
+
+
+def check_bf16(case: Case, train: bool) -> dict:
+    truth = case.jax_raw("float32", train)
+    jax16 = case.jax_raw("bfloat16", train)
+    got = port_raw(case.port("bfloat16"), case.images, train)
+    errs = {"port": rel(got, truth), "jax": rel(jax16, truth),
+            "port_vs_jax": rel(got, jax16)}
+    assert np.isfinite(got).all()
+    assert errs["port"] <= BF16_NOISE_RATIO * errs["jax"], errs
+    assert errs["port_vs_jax"] <= errs["jax"], errs
+    return errs
+
+
+def check_loss_and_grads(case: Case) -> dict:
+    data = batch()
+    metrics, grads = case.jax_loss(data)
+    det = case.port()
+    total, got = det.loss(data)
+    total.backward()
+    assert float(metrics["num_positives"]) > 10
+    assert float(got["num_positives"]) == float(metrics["num_positives"])
+    for k in ("loss", "classification_loss", "localization_loss",
+              "regularization_loss"):
+        np.testing.assert_allclose(float(got[k]), float(metrics[k]),
+                                   rtol=1e-4, err_msg=k)
+    want = convert_params(grads, case.cfg)
+    port = {k: p.grad for k, p in det.model.named_parameters()}
+    assert set(port) == set(want)
+    for part in ("fpn.", "head."):
+        assert grad_cos(port, want, part) >= GRAD_COS, part
+    truth = convert_params(case.jax_loss(data, f64=True)[1], case.cfg)
+    cos = {"port_truth": grad_cos(port, truth, "backbone."),
+           "jax_truth": grad_cos(want, truth, "backbone."),
+           "port_jax": grad_cos(port, want, "backbone.")}
+    assert cos["port_truth"] >= GRAD_COS, cos
+    assert cos["port_truth"] >= cos["jax_truth"] - 1e-5, cos
+    assert 1 - cos["jax_truth"] <= JAX_F32_GRAD, cos
+    assert cos["port_jax"] >= PORT_JAX_GRAD_COS, cos
+    return cos
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """torch on ``TORCH_THREADS`` threads for the module, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return {}
+
+
+def get_case(cases: dict, name: str) -> Case:
+    if name not in cases:
+        cases[name] = Case(CASES[name])
+    return cases[name]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_convert_accounts_for_every_leaf(name):
+    """Every leaf of JAX's tree for the shipped config at full width
+    converts, and the port's state has no other entry."""
+    import dataclasses
+    path = {"mobilenet_v2": "configs/coco_mobilenet_v2_640.json",
+            "efficientnet_lite": "configs/coco_efficientnet_lite0_640.json",
+            "shufflenet": "configs/coco_shufflenet_512.json",
+            "resnet50": "configs/coco_retinanet_resnet50_640.json"}[name]
+    jcfg = dataclasses.replace(JaxConfig.load(path), image_size=128)
+    variables = seeded(jcfg)
+    cfg = Config.from_json(jcfg.to_json())
+    state = convert_variables(variables, cfg)
+    leaves = jax.tree_util.tree_leaves(variables)
+    assert len(leaves) == len(state) == len(expected_state(cfg))
+    assert (sum(v.numel() for v in state.values())
+            == sum(int(np.prod(v.shape)) for v in leaves))
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_raw_maps_f32(cases, name, train):
+    check_f32(get_case(cases, name), train)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_raw_maps_bf16_within_jax_bf16_noise(cases, name, train):
+    check_bf16(get_case(cases, name), train)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_loss_and_gradients_f32(cases, name):
+    check_loss_and_grads(get_case(cases, name))
+
+
+def test_shufflenet_split_order_matters(cases):
+    """A wrong split or shuffle order still gives finite maps: the parity
+    above is what finds it. Swapping the halves of every ShuffleBlock's
+    split moves the maps far off JAX's."""
+    from ssd_tpu_torch.models import shufflenet
+    case = get_case(cases, "shufflenet")
+    det = case.port()
+    orig = shufflenet.ShuffleBlock.forward
+
+    def swapped(self, x):
+        c = x.shape[1] // 2
+        return orig(self, torch.cat([x[:, c:], x[:, :c]], dim=1))
+
+    shufflenet.ShuffleBlock.forward = swapped
+    try:
+        got = port_raw(det, case.images, False)
+    finally:
+        shufflenet.ShuffleBlock.forward = orig
+    assert np.isfinite(got).all()
+    assert rel(got, case.jax_raw("float32", False)) > 1e-2
+
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_check_supported_accepts_every_shipped_config(dtype):
+    """Every config under ``configs/`` builds in bf16 and f32; int8 only on
+    MobileNet-v1, and elsewhere the refusal names M9b."""
+    import dataclasses
+    import glob
+    import os
+    from ssd_tpu_torch.models.detector import check_supported
+    from ssd_tpu_torch.quant import int8_config
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = sorted(glob.glob(os.path.join(root, "configs", "*.json")))
+    assert len(paths) == 8
+    for path in paths:
+        cfg = Config.load(path)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype))
+        if dtype != "int8" or cfg.model.backbone == "mobilenet":
+            check_supported(cfg)
+            continue
+        with pytest.raises(NotImplementedError, match="M9b"):
+            check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="M9b"):
+            int8_config(cfg)
+
+
+def readings() -> dict:
+    """Every case's and ``test_torch_groupnorm.py`` variant's distances
+    behind the bars above: train-mode maps in rel-L2 and the backbone
+    gradient in 1 - cosine, each of the port's and JAX's f32 from JAX's
+    f64 truth and from each other."""
+    from tests.test_torch_groupnorm import VARIANTS
+    torch.set_num_threads(4)
+    out = {}
+    for name, model in {**CASES, **VARIANTS}.items():
+        case = Case(model)
+        maps = check_f32(case, True) if "group" not in name else {}
+        grads = check_loss_and_grads(case)
+        out[name] = {"maps_rel": maps,
+                     "grad_1_minus_cos": {k: 1 - v for k, v in grads.items()}}
+        print(name, json.dumps(out[name]), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["readings"]:
+        sys.exit("usage: python tests/test_torch_backbones.py readings")
+    readings()

@@ -32,7 +32,10 @@ assert not leaked, leaked
 for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
              "tools.bench_serve", "tools.bench_http", "data.tfrecord",
              "data.augment", "data.pipeline", "data.create_tfrecords",
-             "ops.distill", "train", "tools.bench_train", "utils.profiling"):
+             "ops.distill", "train", "tools.bench_train", "utils.profiling",
+             "models.mobilenet_v2", "models.efficientnet",
+             "models.shufflenet", "models.resnet", "ops.fused_head",
+             "tools.train_memory"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
