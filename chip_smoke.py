@@ -60,12 +60,25 @@ any failure raises:
    serve_shufflenet: each other shipped config at full width as the
    flagship serve runs (b32/640; ShuffleNet b8/512), K1 held against the
    plain ``batched_nms`` on the candidates of the path it serves;
+   int8_resnet50, int8_mobilenet_v2, int8_efficientnet_lite,
+   int8_shufflenet: the same configs in int8 with the calibrated neck
+   (every dense conv quantized, calibrated on one seeded batch of 8), the
+   same way;
    select_anchors, fused_head: the flagship with ``select="anchors"`` and
    with the fused 1x1 head, the same way; select_paths: the pyramid
    selection through K1 on 4 batches, the fused head's ``fused_logit_max``
    beside the cuDNN class conv it replaces, and Soft-NMS (linear,
    gaussian) served with no K1 launch, timed beside K1 on the same
    candidates, the card's result equal to the CPU's on two images;
+   tiled: tiled inference (``tiling.TiledPredictor``) of one seeded
+   3840x2160 image with the flagship, 40 tiles and the full pass in one
+   predict (bucket 64), the IoS merge on the card bit-equal to the CPU's
+   on the same per-tile detections, its time and share;
+   tta: flip TTA (``tta.TTAPredictor``) of the flagship at b32, 64 views
+   in one predict, the weighted box fusion on the card bit-equal to the
+   CPU's on the same view detections, its time and share; then behind the
+   daemon with the TTA predictor (``scan_depth`` 1), each request's JSON
+   against the direct call;
    fused_early: the fused ds1+ds2 kernel, driven through its entry point
    (``ssd_tpu_torch.tools.bench_fused_early.run``) on the stem output of
    the served reference model (x1.0) on a 640 px batch of 32, with that
@@ -98,10 +111,15 @@ any failure raises:
    finite, one batch's kernel matches equal to the plain ones, and the
    exported ``.npz`` served by ``Predictor.from_npz``;
    train_resnet50, train_mobilenet_v2, train_efficientnet_lite,
-   train_shufflenet: each other shipped config trained the same way at
-   its batch (64), 2 warm-up and 4 timed steps, its K2 launches counted,
-   K2 held against its plain version on one batch (ShuffleNet's at 512:
-   49 104 anchors), peak memory and step p50;
+   train_shufflenet: each other shipped config trained the same way, as
+   shipped (b64, no accumulation: the ResNet-50 config's step fits since
+   the train-mode batch norm keeps only its input), 2 warm-up and 4 timed
+   steps, its K2 launches counted, K2 held against its plain version on
+   one batch (ShuffleNet's at 512: 49 104 anchors), peak memory and step
+   p50;
+   train_memory: ``tools/train_memory.py`` at b64/640 on the ResNet-50,
+   MobileNet-v2 and flagship configs: the tensors one forward and backward
+   saves, by module and dtype, and the peak;
 9. train_pipeline: the shipped flagship trained through the CLI
    (``python -m ssd_tpu_torch.train`` in a subprocess) from tfrecords that
    the port's ``create_tfrecords`` writes from seeded crowded scenes (256
@@ -111,7 +129,9 @@ any failure raises:
    step, one steady step profiled: no stream sync and no pageable upload
    inside a step, K2 launched once a step and microbatch, the eval mAP
    finite; the same command again resumes and stops; ``best.npz`` and
-   ``export.npz`` serve with K1 and the label map; a run warm-started from
+   ``export.npz`` serve with K1 and the label map; eval_cli: ``python -m
+   ssd_tpu_torch.eval`` on ``best.npz`` and the val shards, with and
+   without ``--tta``, the mAP finite and K1 launched once a predict; a run warm-started from
    that export and distilled from it copies every leaf and logs a finite
    ``distill_loss``; the host pipeline on ``assets/train_golden_v1.npz``'s
    shard gives JAX's stored batches (images bit-equal, or at most 1 unit
@@ -170,8 +190,10 @@ from ssd_tpu_torch.predictor import (Predictor, detection_rows,
                                      detections_arrays)
 from ssd_tpu_torch.quant import calibrate, int8_config
 from ssd_tpu_torch.serve import DetectionServer
+from ssd_tpu_torch.tiling import TiledPredictor
 from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
-                                 kernel_cases)
+                                 kernel_cases, train_memory)
+from ssd_tpu_torch.tta import TTAPredictor, fuse_flip_batch
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
 from ssd_tpu_torch.train import EXPORT_NAME, PROFILE_START, evaluate, train
@@ -195,16 +217,21 @@ EVAL_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
 BACKBONES_GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets",
                                 "backbones_golden_v1.npz")
 # the shipped configs of the other backbones (M9): name -> (config, the
-# serving batch: BASELINE's b8 for ShuffleNet at 512, b32 for the rest;
-# the training's gradient accumulation: the shipped ResNet-50 config, at
-# 1, runs out of the card's 80 GB in its b64/640 step, so it trains here
-# as 2 microbatches of 32, a setting the shipped config does not have)
+# serving batch: BASELINE's b8 for ShuffleNet at 512, b32 for the rest).
+# Each trains as shipped (b64, no accumulation; the ResNet-50 config's step
+# fits the card's 80 GB since the train-mode batch norm keeps only its
+# input), and serves in int8 with the calibrated neck (M9b).
 NEW_CONFIGS = {
-    "resnet50": ("coco_retinanet_resnet50_640.json", 32, 2),
-    "mobilenet_v2": ("coco_mobilenet_v2_640.json", 32, 1),
-    "efficientnet_lite": ("coco_efficientnet_lite0_640.json", 32, 1),
-    "shufflenet": ("coco_shufflenet_512.json", 8, 1),
+    "resnet50": ("coco_retinanet_resnet50_640.json", 32),
+    "mobilenet_v2": ("coco_mobilenet_v2_640.json", 32),
+    "efficientnet_lite": ("coco_efficientnet_lite0_640.json", 32),
+    "shufflenet": ("coco_shufflenet_512.json", 8),
 }
+# the configs whose step memory train_memory tallies at b64/640
+MEMORY_CONFIGS = ("coco_retinanet_resnet50_640.json",
+                  "coco_mobilenet_v2_640.json",
+                  "coco_mobilenet_640_flagship.json")
+TILED_IMAGE_HW = (2160, 3840)  # a 4K frame: 40 flagship tiles + full pass
 GOLDEN_BARS = dict(atol=2e-4, rtol=2e-3)  # tests/test_golden.py's
 LOSS_RTOL = 1e-4  # step-0 loss terms against JAX's
 GRAD_NORM_RTOL = 2e-3  # step-0 gradient norm (train_sanity's bar)
@@ -662,11 +689,18 @@ def phase_serve(phase: str, config: str, power_line: str,
     assert cfg.nms.method == "hard"
     if int8:
         cfg = int8_config(cfg)
+    flagship_int8 = int8 and cfg.model.backbone == "mobilenet"
     pred = Predictor(cfg, None, device=DEVICE)  # weights seeded from 0
     with torch.no_grad():
         pred.detector.model.head.class_net.predict.bias.fill_(
             FLAGSHIP_CLASS_BIAS)
-    extra = calibrate_flagship(pred, cfg) if int8 else {}
+    extra = {}
+    if flagship_int8:
+        extra = calibrate_flagship(pred, cfg)
+    elif int8:  # M9b: every conv on calibrated scales
+        extra = {"calibration": {
+            "batch": 8, "absmax_s": bench_serve.calibrate_seeded(pred),
+            "scales": len(_scales(pred.detector.model))}}
     rng = np.random.default_rng(1)
     h, w = cfg.image_hw()
     batches = [rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
@@ -734,7 +768,7 @@ def phase_serve(phase: str, config: str, power_line: str,
         post = cuda_ms(lambda: nms_cuda.batched_nms_cuda(
             boxes, scores, cfg.nms), iters=5)
 
-    if int8:
+    if flagship_int8:
         extra.update(int8_checks(pred, cfg, batches, feed, power_line))
     extra["host_attribution"] = host_attribution(pred, batches[0])
     p50 = float(np.median(batch_ms))
@@ -1747,11 +1781,10 @@ class TimedBatches(synthetic.SceneBatches):
 
 def phase_train_flagship(power_line: str, warmup: int = 3,
                          timed: int = 10, config: str = FLAGSHIP,
-                         phase: str = "train_flagship",
-                         grad_accum_steps: int | None = None
+                         phase: str = "train_flagship"
                          ) -> tuple[int, float]:
-    """``warmup + timed + 1`` steps of ``config`` (at its batch, full width
-    and depth; ``grad_accum_steps`` microbatches if given) through
+    """``warmup + timed + 1`` steps of ``config`` (as shipped: its batch and
+    accumulation, full width and depth) through
     ``train()``: a step is timed from its batch being ready to the next
     batch being asked for (its metrics read back in between), so the last
     step, followed by the loop's checkpoint and export, is run but not
@@ -1760,9 +1793,7 @@ def phase_train_flagship(power_line: str, warmup: int = 3,
     assert cfg.model.compute_dtype == "bfloat16"
     # log every step: each step then ends in a readback of its metrics
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, log_every=1, grad_accum_steps=(
-            cfg.train.grad_accum_steps if grad_accum_steps is None
-            else grad_accum_steps)))
+        cfg.train, log_every=1))
     accum = max(cfg.train.grad_accum_steps, 1)
     h, w = cfg.image_hw()
     batches = TimedBatches(lambda i: synthetic.crowded_batch(
@@ -2068,7 +2099,7 @@ def eval_golden_check() -> dict:
 
 
 def phase_train_pipeline(power_line: str, flagship_p50_ms: float
-                         ) -> tuple[int, int, int]:
+                         ) -> tuple[int, int, int, int]:
     """The shipped flagship trained through the CLI from tfrecords at
     full width (batch 64, 512/640/768, mosaic, crop, flip, colour, EMA),
     evaluated at its last step; re-run (it resumes and stops); its
@@ -2076,9 +2107,11 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
     from that export; the host pipeline against JAX's golden and timed
     alone; K2 against its plain version on a pipeline batch at each scale;
     ``evaluate`` against JAX's numbers on the eval golden; no wait for the
-    card inside a profiled steady step. Returns (K2 launches of the
-    training run, K1 launches of its evaluation and the serves, K1
-    launches of the eval golden's ``evaluate``)."""
+    card inside a profiled steady step; ``python -m ssd_tpu_torch.eval``
+    on ``best.npz`` and the val shards, with and without ``--tta``.
+    Returns (K2 launches of the training run, K1 launches of its
+    evaluation and the serves, K1 launches of the eval golden's
+    ``evaluate``, K1 launches of the eval CLI runs)."""
     root = tempfile.mkdtemp(prefix="ssd_pipe_")
     try:
         data = write_pipeline_dataset(root)
@@ -2184,6 +2217,10 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
         if t_summary["kernel_launches"]["match"] != PIPE_TEACHER_STEPS * accum:
             raise AssertionError(f"distilled run: {t_summary}")
 
+        eval_cli = eval_cli_check(os.path.join(workdir, "best.npz"),
+                                  data["val"])
+        emit({"phase": "eval_cli", "npz": "train_pipeline's best.npz",
+              "val": PIPE_VAL_EXAMPLES, **eval_cli})
         golden = golden_pipeline_check()
         alone, scale_batches = pipeline_ms_by_scale(data["train"], cfg)
         match_by_scale = pipeline_match_check(cfg, scale_batches)
@@ -2229,7 +2266,226 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
           "golden": golden, "match_vs_plain_by_scale": match_by_scale,
           "eval_golden": eval_golden, "cli_wall_s": wall,
           "cli_reported_wall_s": summary["wall_s"]})
-    return match_launches, eval_nms + serve_nms, eval_golden["nms_launches"]
+    return (match_launches, eval_nms + serve_nms,
+            eval_golden["nms_launches"],
+            sum(r["kernel_launches"]["nms"] for r in eval_cli.values()))
+
+
+# ------------------------------------------------------------------ M10: tiling, TTA, eval CLI
+
+def _seeded_flagship() -> Predictor:
+    """The shipped flagship at full width, weights seeded from 0, class
+    bias -2.5 (every (image, class) problem live)."""
+    pred = Predictor(Config.load(FLAGSHIP), None, device=DEVICE)
+    with torch.no_grad():
+        pred.detector.model.head.class_net.predict.bias.fill_(
+            FLAGSHIP_CLASS_BIAS)
+    return pred
+
+
+def _host_ms(fn, reps: int) -> tuple[list[float], object]:
+    """Host-clock milliseconds of ``reps`` calls of ``fn`` (each ends in a
+    readback), and the last result."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def phase_tiled(power_line: str) -> int:
+    """Tiled inference (``tiling.TiledPredictor``) of one seeded 3840x2160
+    image with the flagship: 40 tiles of 640 and the full pass, one predict
+    in the bucket of 64, K1 doing its NMS; the merge (IoS greedy NMS over
+    the 41 x 100 candidates, K sequential steps on the card) against the
+    same merge on the CPU on the same per-tile detections, bit for bit.
+    Returns the NMS launches of the counted runs."""
+    pred = _seeded_flagship()
+    tiler = TiledPredictor(pred)
+    image = np.random.default_rng(31).integers(
+        0, 256, TILED_IMAGE_HW + (3,), dtype=np.uint8)
+    grid = tiler.grid_for(image.shape[:2])
+    passes = len(grid.origins) + 1
+    if len(grid.origins) != 40 or pred._bucket_for(passes) != 64:
+        raise AssertionError(f"{len(grid.origins)} tiles")
+    tiler.predict(image)  # the bucket of 64 warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_cuda.launches = 0
+    times, out = _host_ms(lambda: tiler.predict(image), 5)
+    launches = nms_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != 5:
+        raise AssertionError(f"{launches} NMS launches for 5 tiled images")
+    assert out["boxes"].shape == (tiler.max_boxes, 4)
+    assert np.isfinite(out["boxes"]).all() and 0 < out["num_boxes"]
+
+    cand_ms, cand = _host_ms(lambda: tiler.candidates(image), 3)
+    merge_ms, card = _host_ms(lambda: tiler.merge(*cand), 3)
+    cpu_ms, cpu = _host_ms(lambda: tiler.merge(*cand, device="cpu"), 1)
+    for k in ("boxes", "scores", "labels", "num_boxes"):
+        if not np.array_equal(card[k], cpu[k]):
+            raise AssertionError(f"tiled merge on the card differs from "
+                                 f"the CPU's: {k}")
+    emit({"phase": "tiled", "config": os.path.relpath(FLAGSHIP, ROOT),
+          "image": list(TILED_IMAGE_HW), "tiles": len(grid.origins),
+          "passes": passes, "bucket": pred._bucket_for(passes),
+          "candidates": int(len(cand[1])),
+          "valid_candidates": int((cand[1] > 0).sum()),
+          "num_boxes": int(out["num_boxes"]), "nms_launches": launches,
+          "image_ms": times, "p50_image_ms": float(np.median(times)),
+          "predict_and_map_ms": float(np.median(cand_ms)),
+          "merge_ms_card": float(np.median(merge_ms)),
+          "merge_ms_cpu": cpu_ms[0], "merge_share": float(
+              np.median(merge_ms) / np.median(times)),
+          "merge_card_equals_cpu": True, "peak_mem_gib": peak,
+          "note": "host clock, each call ends in its readback; seeded "
+                  "weights, class bias -2.5; on " + power_line})
+    return launches
+
+
+def phase_tta(power_line: str) -> tuple[int, int]:
+    """Flip TTA of the flagship at b32 (64 views, one predict in the bucket
+    of 64, K1 doing its NMS) through ``TTAPredictor.predict``; its weighted
+    box fusion (200 candidates an image, 200 sequential steps for the 32
+    images at once on the card) against the same fusion on the CPU on the
+    same view detections, bit for bit; then behind the daemon
+    (``DetectionServer`` with the ``TTAPredictor``, ``scan_depth`` 1): each
+    request's JSON against the direct call on the same pixels. Returns the
+    NMS launches of the direct and the daemon runs."""
+    pred = _seeded_flagship()
+    ttap = TTAPredictor(pred)
+    h, w = pred.cfg.image_hw()
+    rng = np.random.default_rng(41)
+    batches = [rng.integers(0, 256, (32, h, w, 3), dtype=np.uint8)
+               for _ in range(3)]
+    ttap.warmup(32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_cuda.launches = 0
+    times = []
+    for i in range(10):
+        t0 = time.perf_counter()
+        out = ttap.predict(batches[i % 3])
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_output(out, 32, ttap.max_boxes)
+    launches = nms_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != 10:
+        raise AssertionError(f"{launches} NMS launches for 10 TTA batches")
+
+    views = pred.predict_collect(ttap.predict_dispatch(batches[0])["inner"])
+    base = {k: views[k][:32] for k in DET_KEYS}
+    flip = {k: views[k][32:] for k in DET_KEYS}
+    args = (base, flip, ttap.iou_threshold, ttap.max_boxes)
+    predict_ms, _ = _host_ms(lambda: pred.predict(
+        list(batches[0]) + [im[:, ::-1] for im in batches[0]]), 3)
+    wbf_ms, card = _host_ms(lambda: fuse_flip_batch(*args, device=DEVICE), 3)
+    cpu_ms, cpu = _host_ms(lambda: fuse_flip_batch(*args, device="cpu"), 1)
+    for k in DET_KEYS:
+        if not np.array_equal(card[k], cpu[k]):
+            raise AssertionError(f"WBF on the card differs from the CPU's: "
+                                 f"{k}")
+    direct = ttap.predict(batches[0])
+    for k in DET_KEYS:
+        if not np.array_equal(direct[k], card[k]):
+            raise AssertionError(f"TTAPredictor differs from its fusion: {k}")
+
+    # behind the daemon: one request at a time, each a batch of one
+    dpred = TTAPredictor(_seeded_flagship())
+    srv = DetectionServer(dpred, host="127.0.0.1", port=0, max_batch=32,
+                          max_wait_ms=0.0, default_score_threshold=0.0,
+                          scan_depth=4)
+    if srv.dispatcher.scan_depth != 1:
+        raise AssertionError("the TTA daemon groups batches")
+    bodies, _ = bench_http.request_bodies(w)
+    dpred.warmup(1)
+    srv.start()
+    try:
+        nms_cuda.launches = 0
+        daemon = [post_json(srv.port, body) for body in bodies[:8]]
+        daemon_launches = nms_cuda.launches
+    finally:
+        srv.stop()
+    for body, got in zip(bodies[:8], daemon):
+        want = detection_rows(dpred.predict(
+            native.decode_jpeg(body, h, w)), 0.0)
+        rows = got["detections"]
+        if len(rows) != len(want) or any(
+                a["label"] != b["label"]
+                or abs(a["score"] - b["score"]) > JSON_TOL
+                or np.abs(np.subtract(a["box_yxyx"], b["box_yxyx"])).max()
+                > JSON_TOL for a, b in zip(rows, want)):
+            raise AssertionError("the TTA daemon differs from the direct "
+                                 "call")
+    if daemon_launches != 8:
+        raise AssertionError(f"{daemon_launches} NMS launches for 8 daemon "
+                             "requests")
+    emit({"phase": "tta", "config": os.path.relpath(FLAGSHIP, ROOT),
+          "batch": 32, "views": 64, "bucket": pred._bucket_for(64),
+          "merge": ttap.merge, "nms_launches": launches,
+          "daemon_nms_launches": daemon_launches, "daemon_requests": 8,
+          "num_boxes_mean": float(np.mean(out["num_boxes"])),
+          "batch_ms": times, "p50_batch_ms": float(np.median(times)),
+          "img_per_s": 32 / np.median(times) * 1e3,
+          "predict_64_views_ms": float(np.median(predict_ms)),
+          "wbf_ms_card": float(np.median(wbf_ms)), "wbf_ms_cpu": cpu_ms[0],
+          "wbf_share": float(np.median(wbf_ms) / np.median(times)),
+          "wbf_card_equals_cpu": True, "daemon_equals_direct": True,
+          "peak_mem_gib": peak,
+          "note": "host clock, each call ends in its readback; seeded "
+                  "weights, class bias -2.5; on " + power_line})
+    return launches, daemon_launches
+
+
+def eval_cli_check(npz: str, val_pattern: str) -> dict:
+    """``python -m ssd_tpu_torch.eval`` on ``npz`` and the val shards, in a
+    subprocess, without and with ``--tta``: the closing JSON line of each
+    (mAP finite, K1 launched once a predict)."""
+    rows = {}
+    for tta in (False, True):
+        cmd = [sys.executable, "-m", "ssd_tpu_torch.eval", "--npz", npz,
+               "--val-pattern", val_pattern, "--batch-size", "32"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--tta"] * tta, cwd=ROOT,
+                              capture_output=True, text=True,
+                              timeout=PIPE_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"eval CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        batches = -(-last["images"] // 32)
+        if (not np.isfinite(last["mAP"]) or last["images"] != PIPE_VAL_EXAMPLES
+                or last["kernel_launches"]["nms"] != batches * (1 + tta)):
+            raise AssertionError(f"eval CLI: {last}")
+        last["wall_s"] = time.perf_counter() - t0
+        rows["tta" if tta else "plain"] = last
+    return rows
+
+
+def phase_train_memory(power_line: str) -> int:
+    """``tools/train_memory.py`` at b64/640 on the ResNet-50, MobileNet-v2
+    and flagship configs: one forward and backward each, the tensors saved
+    for the backward by module and dtype, and the peak. Returns the
+    matching launches (one a step)."""
+    matching_cuda.launches = 0
+    rows = []
+    for name in MEMORY_CONFIGS:
+        cfg = Config.load(os.path.join(ROOT, "configs", name))
+        row = train_memory.run(cfg, [64], device=DEVICE)[0]
+        if row["oom"] is not None:
+            raise AssertionError(f"{name}: ran out of memory in the "
+                                 f"{row['oom']}")
+        norm = sum(v for k, v in row["saved"].items()
+                   if k.startswith("BatchNorm/"))
+        rows.append({"config": name, **row, "saved_by_batch_norm_gib": norm})
+        torch.cuda.empty_cache()
+    emit({"phase": "train_memory", "rows": rows,
+          "note": "one forward and backward of the loss, no optimizer; "
+                  "on " + power_line})
+    return matching_cuda.launches
 
 
 def main() -> int:
@@ -2267,8 +2523,16 @@ def main() -> int:
         f"serve_{name}": phase_serve(
             f"serve_{name}", os.path.join(ROOT, "configs", path), power_line,
             batch=batch)
-        for name, (path, batch, _) in NEW_CONFIGS.items()}
+        for name, (path, batch) in NEW_CONFIGS.items()}
+    nms_launches_new.update({
+        f"int8_{name}": phase_serve(
+            f"int8_{name}", os.path.join(ROOT, "configs", path), power_line,
+            int8=True, batch=batch)
+        for name, (path, batch) in NEW_CONFIGS.items()})
     nms_launches_new.update(phase_select_paths(power_line))
+    nms_launches_new["tiled"] = phase_tiled(power_line)
+    (nms_launches_new["tta"],
+     nms_launches_new["tta_daemon"]) = phase_tta(power_line)
     main_early, early_launches = phase_fused_early(power_line)
     main_match = phase_match()
     phase_train_sanity()
@@ -2277,10 +2541,12 @@ def main() -> int:
         f"train_{name}": phase_train_flagship(
             power_line, warmup=2, timed=4,
             config=os.path.join(ROOT, "configs", path),
-            phase=f"train_{name}", grad_accum_steps=accum)[0]
-        for name, (path, _, accum) in NEW_CONFIGS.items()}
+            phase=f"train_{name}")[0]
+        for name, (path, _) in NEW_CONFIGS.items()}
+    match_launches_new["train_memory"] = phase_train_memory(power_line)
     (match_launches_pipeline, nms_launches_train,
-     nms_launches_eval_golden) = phase_train_pipeline(power_line, flagship_p50)
+     nms_launches_eval_golden, nms_launches_new["eval_cli"]) = \
+        phase_train_pipeline(power_line, flagship_p50)
 
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",

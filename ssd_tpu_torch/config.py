@@ -17,12 +17,11 @@ Fields that select a TPU lowering have no effect in the port:
 * ``MatcherConfig.use_pallas``: matching follows the tensors' device too
   (``ops/matching_cuda.py``: the hand-written kernel on CUDA tensors, its
   plain version on CPU tensors).
-* ``ModelConfig.remat_early``: eager PyTorch keeps every activation.
 
-Training fields the port's loop does not act on yet (``ROADMAP.md``):
-``TrainConfig.eval_every``, ``init_from``, ``distill_*``,
-``param_sharding``, ``multiscale``/``multiscale_every`` (the input
-pipeline's job), and every ``DataConfig`` field but ``max_gt_boxes``.
+The one training field the port does not act on yet is
+``TrainConfig.param_sharding`` (``ROADMAP.md`` M11, scale-out); the input
+pipeline's multi-host split (``data.pipeline.Pipeline``'s ``host_id`` and
+``num_hosts``) is kept but driven by no caller.
 """
 
 from __future__ import annotations

@@ -20,10 +20,12 @@ schedule), MobileNet-v2, EfficientNet-lite, ShuffleNet-v2 and ResNet-50;
 ``model.norm`` is ``"batch"`` or ``"group"``.
 
 ``compute_dtype="int8"`` is an inference lowering of the same weights: the
-backbone's dense convs run int8 on static ReLU6 scales, and with
-``int8_neck`` the FPN and head too, on calibrated scales (``quant.py``)
-that the state dict carries beside the weights. Without ``int8_neck`` the
-FPN and head run bf16. The port builds int8 for MobileNet-v1 only.
+backbone's dense convs run int8, on static ReLU6 scales unless calibrated,
+and with ``int8_neck`` the FPN and head too, on calibrated scales
+(``quant.py``) that the state dict carries beside the weights. Without
+``int8_neck`` the FPN and head run bf16. Every backbone but MobileNet-v1
+needs ``int8_neck``, a calibrated model: their activations are not all
+ReLU6-bounded (the JAX package's rule).
 """
 
 from __future__ import annotations
@@ -73,8 +75,8 @@ def normalize_images(images: torch.Tensor, mean: torch.Tensor | None = None,
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on a configuration the JAX package refuses, or one the port
-    does not build yet: int8 on a backbone other than MobileNet-v1."""
+    """Raise on a configuration the JAX package refuses (its
+    ``build_backbone``): among them uncalibrated int8 off MobileNet-v1."""
     m = cfg.model
     if m.backbone not in BACKBONES:
         raise ValueError(f"unknown backbone: {m.backbone}")
@@ -93,11 +95,13 @@ def check_supported(cfg: Config) -> None:
         raise ValueError(
             "stem_schedule='dense4' already space-to-depth-packs the stem; "
             "stem_space_to_depth must stay False")
-    if m.compute_dtype == "int8" and m.backbone != "mobilenet":
-        raise NotImplementedError(
-            f"model.compute_dtype='int8' with model.backbone="
-            f"{m.backbone!r} is not ported yet: int8 with a calibrated "
-            "int8_neck for the other backbones is M9b (see ROADMAP.md)")
+    if (m.compute_dtype == "int8" and m.backbone != "mobilenet"
+            and not m.int8_neck):
+        raise ValueError(
+            "uncalibrated int8 relies on ReLU6-bounded activations; only "
+            "the mobilenet backbone supports it. Other backbones need a "
+            "calibrated artifact: set model.int8_neck=true and run "
+            "python -m ssd_tpu_torch.quant")
 
 
 def build_backbone(cfg: Config) -> nn.Module:
@@ -107,11 +111,12 @@ def build_backbone(cfg: Config) -> nn.Module:
     check_supported(cfg)
     m = cfg.model
     kw = dict(bn_momentum=m.bn_momentum, norm=m.norm,
-              stem_stride=1 if m.stem_space_to_depth else 2)
+              stem_stride=1 if m.stem_space_to_depth else 2,
+              int8=m.compute_dtype == "int8")
     if m.backbone == "mobilenet":
         return MobileNetV1(m.width_multiplier, m.stem_schedule,
                            stem_fold_normalize=True,
-                           int8=m.compute_dtype == "int8", **kw)
+                           remat_early=m.remat_early, **kw)
     if m.backbone == "mobilenet_v2":
         return MobileNetV2(m.width_multiplier, **kw)
     if m.backbone == "efficientnet_lite":

@@ -28,9 +28,10 @@ _SCHEDULE = (
 class EfficientNetLite(InvertedResidualNet):
     def __init__(self, width_multiplier: float = 1.0,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch", stem_stride: int = 2):
+                 norm: str = "batch", stem_stride: int = 2,
+                 int8: bool = False):
         last = len(_SCHEDULE) - 1
         schedule = tuple(
             (t, 320 if gi == last else _width(c, width_multiplier), n, s, k)
             for gi, (t, c, n, s, k) in enumerate(_SCHEDULE))
-        super().__init__(32, schedule, bn_momentum, norm, stem_stride)
+        super().__init__(32, schedule, bn_momentum, norm, stem_stride, int8)

@@ -21,11 +21,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 from fractions import Fraction
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_EPSILON, BATCH_NORM_MOMENTUM
@@ -112,6 +114,63 @@ class Conv(nn.Module):
                 self.bias.fill_(bias_value)
 
 
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within the block a train-mode ``BatchNorm`` leaves its running
+    statistics alone: an activation checkpoint's recompute reruns the
+    forward, whose update has already run once. Per thread (the autograd
+    engine recomputes in its own)."""
+    prev = getattr(_local, "recomputing", False)
+    _local.recomputing = True
+    try:
+        yield
+    finally:
+        _local.recomputing = prev
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` under an activation checkpoint: its inner activations
+    are not kept but recomputed in the backward, without a second update
+    of any batch norm's running statistics (``recomputing``)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+
+
+class _Recomputed(torch.autograd.Function):
+    """``fn(x, weight, bias) -> (y, *stats)`` that saves only its three
+    inputs, as they arrive (a bf16 ``x`` stays bf16). The backward reruns
+    ``fn`` under autograd on the saved inputs and backpropagates ``y``'s
+    gradient through it: the same ops in the same order as autograd of
+    ``fn`` itself, so the gradients are bit-equal to it, while the norm's
+    f32 intermediates live for one norm's backward instead of the whole
+    step. ``stats`` are returned without a gradient."""
+
+    @staticmethod
+    def forward(ctx, fn, x, weight, bias):
+        ctx.fn = fn
+        ctx.save_for_backward(x, weight, bias)
+        y, *stats = fn(x, weight, bias)
+        ctx.mark_non_differentiable(*stats)
+        return (y, *stats)
+
+    @staticmethod
+    def backward(ctx, gy, *_):
+        need = ctx.needs_input_grad[1:]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        wanted = [t for t, n in zip(inputs, need) if n]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                y = ctx.fn(*inputs)[0]
+            grads = iter(torch.autograd.grad(y, wanted, gy))
+        return (None, *(next(grads) if n else None for n in need))
+
+
 class BatchNorm(nn.Module):
     """Batch norm in the order flax computes it.
 
@@ -124,7 +183,10 @@ class BatchNorm(nn.Module):
     mean square over (N, H, W) in f32, and the fast, biased variance
     ``max(0, E[x^2] - E[x]^2)``; it then updates the running statistics
     with ``momentum`` as a decay, ``r = momentum * r + (1 - momentum) *
-    batch`` (torch's own ``momentum`` is the complement).
+    batch`` (torch's own ``momentum`` is the complement), once a forward
+    (not in a checkpoint's recompute, ``recomputing``). Train mode keeps
+    only its input for the backward (``_Recomputed``), not its f32 copies
+    of it.
     """
 
     def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON,
@@ -137,23 +199,34 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
+    def _train_norm(self, x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor):
+        """The batch-statistics norm -> ``(y, mean, var)``."""
         xf = x.float()
-        if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.maximum(xf.square().mean(dim=(0, 2, 3))
-                                - mean.square(), mean.new_zeros(()))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.maximum(xf.square().mean(dim=(0, 2, 3))
+                            - mean.square(), mean.new_zeros(()))
+        return self._affine(x, xf, mean, var, weight, bias), mean, var
+
+    def _affine(self, x, xf, mean, var, weight, bias) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
+        return (y + bias.view(shape)).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self._affine(x, x.float(), self.running_mean,
+                                self.running_var, self.weight, self.bias)
+        y, mean, var = _Recomputed.apply(self._train_norm, x, self.weight,
+                                         self.bias)
+        if not getattr(_local, "recomputing", False):
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(self.running_mean * m
                                         + mean * (1 - m))
                 self.running_var.copy_(self.running_var * m + var * (1 - m))
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape)
-        return (y + self.bias.view(shape)).to(x.dtype)
+        return y
 
 
 def num_groups(channels: int, target: int = 32) -> int:
@@ -174,7 +247,7 @@ class GroupNorm(nn.Module):
     two-pass variance, which differs); then, per channel, ``y = (x - mean)
     * (rsqrt(var + eps) * scale) + bias`` in f32, rounded once to the
     input's dtype. No running statistics: train and eval mode are the same
-    function.
+    function. It keeps only its input for the backward (``_Recomputed``).
     """
 
     def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON):
@@ -184,7 +257,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor) -> tuple[torch.Tensor]:
         n, c = x.shape[:2]
         xf = x.float()
         xg = xf.reshape(n, self.groups, -1)
@@ -194,9 +268,12 @@ class GroupNorm(nn.Module):
         size = c // self.groups
         mean = mean.repeat_interleave(size, dim=1)  # (N, C)
         var = var.repeat_interleave(size, dim=1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = torch.rsqrt(var + self.eps) * weight
         y = (xf - mean[..., None, None]) * mul[..., None, None]
-        return (y + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+        return ((y + bias.view(1, -1, 1, 1)).to(x.dtype),)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _Recomputed.apply(self._norm, x, self.weight, self.bias)[0]
 
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:

@@ -16,6 +16,12 @@ schedules reach stride 4, then ds3-ds13 follow the MobileNet-v1 table:
 With ``int8`` every pointwise conv, and the reference schedule's stem, is a
 ``QuantConv`` on the static ReLU6 (stem: normalized-image) bound unless
 calibrated.
+
+``remat_early`` (train mode, with gradients; the JAX package's
+``nn.remat``): ``"blocks"`` puts each early block, stem to ds5, under its
+own activation checkpoint (``layers.checkpoint``: its block input is kept,
+the rest recomputed in the backward); ``"stack"`` one checkpoint over stem
+to ds5 (only the image and c3 are kept); ``"none"`` keeps everything.
 """
 
 from __future__ import annotations
@@ -28,8 +34,11 @@ from torch import nn
 from ssd_tpu_torch.constants import BATCH_NORM_MOMENTUM, MEAN_RGB, STD_RGB
 from ssd_tpu_torch.models.layers import (BatchNorm, ConvBN,
                                          DepthwiseSeparable, GroupNorm,
-                                         activation, conv_int8,
+                                         activation, checkpoint, conv_int8,
                                          quantize_weight, space_to_depth)
+
+
+REMAT_MODES = ("none", "blocks", "stack")
 
 
 def _width(ch: int, multiplier: float) -> int:
@@ -215,9 +224,13 @@ class MobileNetV1(nn.Module):
                  stem_fold_normalize: bool = False,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
                  stem_stride: int = 2, int8: bool = False,
-                 norm: str = "batch"):
+                 norm: str = "batch", remat_early: str = "none"):
         super().__init__()
         w = lambda ch: _width(ch, width_multiplier)  # noqa: E731
+        if remat_early not in REMAT_MODES:
+            raise ValueError(f"remat_early must be one of {REMAT_MODES}, "
+                             f"got {remat_early!r}")
+        self.remat_early = remat_early
         self.stem_schedule = stem_schedule
         if stem_schedule == "dense4":
             self.stem = Dense4Stem(w(128), stem_fold_normalize,
@@ -250,13 +263,25 @@ class MobileNetV1(nn.Module):
             raise ValueError("stem_output is the reference schedule's")
         return self.stem(x.permute(0, 3, 1, 2).to(dtype))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> dict:
+    def _early(self, x: torch.Tensor, dtype: torch.dtype,
+               remat: str) -> torch.Tensor:
+        """Stem to ds5 (c3), each block checkpointed with ``"blocks"``."""
+        run = checkpoint if remat == "blocks" else (lambda f, *a: f(*a))
         if self.stem_schedule == "dense4":
-            x = self.stem(x, dtype)
+            x = run(self.stem, x, dtype)
         else:
-            x = self.ds2(self.ds1(self.stem_output(x, dtype)))
+            x = run(self.ds2, run(self.ds1, run(self.stem_output, x, dtype)))
         for name in ("ds3", "ds4", "ds5"):
-            x = getattr(self, name)(x)
+            x = run(getattr(self, name), x)
+        return x
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> dict:
+        remat = (self.remat_early if self.training and torch.is_grad_enabled()
+                 else "none")
+        if remat == "stack":
+            x = checkpoint(self._early, x, dtype, "none")
+        else:
+            x = self._early(x, dtype, remat)
         c3 = x
         for i in range(6, 12):
             x = getattr(self, f"ds{i}")(x)

@@ -8,6 +8,11 @@ is shared with EfficientNet-lite (``models/efficientnet.py``), which adds
 
 The residual add runs in the compute dtype, as flax adds two bf16 ``ConvBN``
 outputs: in bf16 it rounds once, after the add.
+
+With ``int8`` every dense conv (the stem, each expand and project) is a
+``QuantConv``; the depthwise convs stay bf16. The stem's static bound is 3
+(its input is the normalized image), the others' ReLU6's 6: the JAX
+package's ``act_range``s, which serve only where no calibrated scale is.
 """
 
 from __future__ import annotations
@@ -43,10 +48,10 @@ class InvertedResidual(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  expand: int = 6, kernel: int = 3,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch"):
+                 norm: str = "batch", int8: bool = False):
         super().__init__()
         mid = in_ch * expand
-        kw = dict(bn_momentum=bn_momentum, norm=norm)
+        kw = dict(bn_momentum=bn_momentum, norm=norm, quant=int8)
         self.expand = ConvBN(in_ch, mid, 1, **kw) if expand != 1 else None
         self.depthwise = ConvBN(mid, mid, kernel, stride, groups=mid, **kw)
         self.project = ConvBN(mid, out_ch, 1, act=None, **kw)
@@ -67,24 +72,27 @@ class InvertedResidualNet(nn.Module):
     stage, widths already applied. The images are normalized floats,
     ``(N, H, W, 3)`` with ``stem_stride=2`` or space-to-depth(2)-packed
     ``(N, H/2, W/2, 12)`` with ``stem_stride=1``; they are cast to
-    ``dtype`` first.
+    ``dtype`` first. ``int8``: the dense convs quantized (module
+    docstring).
     """
 
     def __init__(self, stem_ch: int, schedule: tuple,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch", stem_stride: int = 2):
+                 norm: str = "batch", stem_stride: int = 2,
+                 int8: bool = False):
         super().__init__()
         kw = dict(bn_momentum=bn_momentum, norm=norm)
-        # the JAX package's act_range=3.0 here is int8 metadata only
+        # act_range 3: the stem's input is the normalized image
         self.stem = ConvBN(3 if stem_stride == 2 else 12, stem_ch, 3,
-                           stem_stride, **kw)  # /2
+                           stem_stride, quant=int8, act_range=3.0,
+                           **kw)  # /2
         self.blocks = []
         in_ch = stem_ch
         for gi, (t, ch, n, s, k) in enumerate(schedule):
             for bi in range(n):
                 name = f"block{gi}_{bi}"
                 self.add_module(name, InvertedResidual(
-                    in_ch, ch, s if bi == 0 else 1, t, k, **kw))
+                    in_ch, ch, s if bi == 0 else 1, t, k, int8=int8, **kw))
                 self.blocks.append((name, _TAPS.get(gi) if bi == n - 1
                                     else None))
                 in_ch = ch
@@ -103,8 +111,9 @@ class InvertedResidualNet(nn.Module):
 class MobileNetV2(InvertedResidualNet):
     def __init__(self, width_multiplier: float = 1.0,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch", stem_stride: int = 2):
+                 norm: str = "batch", stem_stride: int = 2,
+                 int8: bool = False):
         w = lambda ch: _width(ch, width_multiplier)  # noqa: E731
         super().__init__(w(32), tuple((t, w(c), n, s, 3)
                                       for t, c, n, s in _SCHEDULE),
-                         bn_momentum, norm, stem_stride)
+                         bn_momentum, norm, stem_stride, int8)

@@ -5,6 +5,12 @@ stride in the 3x3), a 7x7 stride-2 SAME stem (pads 2 before and 3 after at
 640) with ReLU, a SAME 3x3/2 max-pool, and stages of 3, 4, 6 and 3 blocks;
 the stride-8/16/32 maps ``c3``, ``c4``, ``c5`` have 512, 1024 and 2048
 channels. Each block adds its residual in the compute dtype, then the ReLU.
+
+With ``int8`` every conv is a ``QuantConv`` (ResNet has no depthwise conv).
+ReLU does not bound the activations, so the static ReLU6 bound (6) the
+JAX package falls back to is only a placeholder: such a model is served on
+calibrated scales (``quant.py``; ``check_supported`` requires
+``int8_neck``).
 """
 
 from __future__ import annotations
@@ -28,10 +34,10 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch"):
+                 norm: str = "batch", int8: bool = False):
         super().__init__()
         out_ch = 4 * features
-        kw = dict(bn_momentum=bn_momentum, norm=norm)
+        kw = dict(bn_momentum=bn_momentum, norm=norm, quant=int8)
         self.proj = (ConvBN(in_ch, out_ch, 1, stride, act=None, **kw)
                      if in_ch != out_ch or stride != 1 else None)
         self.conv1 = ConvBN(in_ch, features, 1, act="relu", **kw)
@@ -48,11 +54,13 @@ class ResNet50(nn.Module):
     images as ``models/mobilenet_v2.InvertedResidualNet`` takes them."""
 
     def __init__(self, bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch", stem_stride: int = 2):
+                 norm: str = "batch", stem_stride: int = 2,
+                 int8: bool = False):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, norm=norm)
+        kw = dict(bn_momentum=bn_momentum, norm=norm, int8=int8)
         self.stem = ConvBN(3 if stem_stride == 2 else 12, 64, 7, stem_stride,
-                           act="relu", **kw)  # /2, then the pool: /4
+                           act="relu", bn_momentum=bn_momentum, norm=norm,
+                           quant=int8)  # /2, then the pool: /4
         in_ch = 64
         for prefix, width, blocks, stride in _STAGES:
             for i in range(blocks):

@@ -9,6 +9,11 @@ In NCHW the split takes channels ``[:C/2]`` as the shortcut, the shuffle
 permutes dim 1 (``layers.channel_shuffle``), and the SAME max-pool pads 0
 before and 1 after (``layers.max_pool_same``). The depthwise convs have no
 activation.
+
+With ``int8`` every dense conv (the stem and the 1x1s) is a ``QuantConv``;
+the depthwise convs stay bf16. The 1x1s after a depthwise conv take its
+output without activation, unbounded: served on calibrated scales
+(``check_supported`` requires ``int8_neck``).
 """
 
 from __future__ import annotations
@@ -39,10 +44,10 @@ class ShuffleBlock(nn.Module):
     concatenate, shuffle."""
 
     def __init__(self, channels: int, bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch"):
+                 norm: str = "batch", int8: bool = False):
         super().__init__()
         c = channels // 2
-        kw = dict(bn_momentum=bn_momentum, norm=norm)
+        kw = dict(bn_momentum=bn_momentum, norm=norm, quant=int8)
         self.pw1 = ConvBN(c, c, 1, **kw)
         self.dw = ConvBN(c, c, 3, groups=c, act=None, **kw)
         self.pw2 = ConvBN(c, c, 1, **kw)
@@ -60,10 +65,10 @@ class ShuffleDownBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch"):
+                 norm: str = "batch", int8: bool = False):
         super().__init__()
         c = features // 2
-        kw = dict(bn_momentum=bn_momentum, norm=norm)
+        kw = dict(bn_momentum=bn_momentum, norm=norm, quant=int8)
         self.left_dw = ConvBN(in_ch, in_ch, 3, 2, groups=in_ch, act=None,
                               **kw)
         self.left_pw = ConvBN(in_ch, c, 1, **kw)
@@ -83,12 +88,14 @@ class ShuffleNetV2(nn.Module):
 
     def __init__(self, width_multiplier: float = 1.0,
                  bn_momentum: float = BATCH_NORM_MOMENTUM,
-                 norm: str = "batch", stem_stride: int = 2):
+                 norm: str = "batch", stem_stride: int = 2,
+                 int8: bool = False):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, norm=norm)
+        kw = dict(bn_momentum=bn_momentum, norm=norm, int8=int8)
         widths = _stage_widths(width_multiplier)
         self.stem = ConvBN(3 if stem_stride == 2 else 12, 24, 3, stem_stride,
-                           **kw)  # /2, then the pool: /4
+                           bn_momentum=bn_momentum, norm=norm,
+                           quant=int8)  # /2, then the pool: /4
         in_ch = 24
         for stage, (width, blocks) in enumerate(zip(widths, _STAGE_BLOCKS),
                                                 start=2):

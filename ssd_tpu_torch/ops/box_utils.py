@@ -1,4 +1,4 @@
-"""Box geometry on tensors: areas, IoU, encode, decode, clipping.
+"""Box geometry on tensors: areas, IoU, IoS, encode, decode, clipping.
 
 Boxes are ``(..., 4)`` tensors of ``(ymin, xmin, ymax, xmax)``, normalized
 to ``[0, 1]``. The arithmetic follows ``ssd_tpu/ops/box_utils.py`` operation
@@ -34,6 +34,17 @@ def iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = intersection(boxes1, boxes2)
     union = area(boxes1)[..., :, None] + area(boxes2)[..., None, :] - inter
     return inter / union.clamp_min(EPSILON)
+
+
+def ios(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """``(..., N, 4) x (..., M, 4) -> (..., N, M)`` intersection over the
+    smaller area (the overlap coefficient) in ``[0, 1]``: a box inside
+    another scores 1 whatever their sizes, the merge measure where one
+    detection may be a clipped fragment of another (tiled inference)."""
+    inter = intersection(boxes1, boxes2)
+    smaller = torch.minimum(area(boxes1)[..., :, None],
+                            area(boxes2)[..., None, :])
+    return inter / smaller.clamp_min(EPSILON)
 
 
 def to_center_form(boxes: torch.Tensor) -> torch.Tensor:

@@ -67,16 +67,20 @@ def class_topk(scores: torch.Tensor, cfg: NMSConfig):
 
 
 def greedy_suppression_mask(boxes: torch.Tensor, valid: torch.Tensor,
-                            iou_threshold: float) -> torch.Tensor:
+                            iou_threshold: float,
+                            metric: str = "iou") -> torch.Tensor:
     """Greedy NMS keep-mask over score-sorted candidates.
 
     ``boxes (..., K, 4)``, ``valid (..., K)``. Step ``i`` drops every
-    ``j > i`` whose IoU with ``i`` exceeds the threshold, if ``i`` is still
-    kept. The ``(..., K, K)`` IoU is formed once; row ``i`` is pivot ``i``
+    ``j > i`` whose overlap with ``i`` exceeds the threshold, if ``i`` is
+    still kept. ``metric``: ``"iou"`` or ``"ios"`` (intersection over the
+    smaller box, the tiled merge's: it drops contained fragments). The
+    ``(..., K, K)`` overlap is formed once; row ``i`` is pivot ``i``
     against all candidates, as the JAX scan computes it.
     """
     k = boxes.shape[-2]
-    over = box_utils.iou(boxes, boxes) > f32(iou_threshold)
+    overlap = {"iou": box_utils.iou, "ios": box_utils.ios}[metric]
+    over = overlap(boxes, boxes) > f32(iou_threshold)
     later = torch.ones(k, k, dtype=torch.bool,
                        device=boxes.device).triu(diagonal=1)
     over &= later

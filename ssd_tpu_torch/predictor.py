@@ -26,7 +26,12 @@ and it issues no device work.
 
     python -m ssd_tpu_torch.predictor --npz model.npz --images a.jpg b.png \\
         [--out dets.json] [--batch-size 8] [--score-threshold 0.3] \\
-        [--letterbox] [--device cpu]
+        [--letterbox] [--device cpu] \\
+        [--tta | --tiled [--tile-overlap 0.25] [--edge-penalty 0.5]]
+
+``--tta``: flip test-time augmentation fused by weighted box fusion
+(``tta.py``); ``--tiled``: native-resolution tiled inference of each image
+(``tiling.py``, one predict of its tiles per image).
 """
 
 from __future__ import annotations
@@ -408,18 +413,40 @@ def main(argv=None) -> None:
                    help="preserve aspect ratio (zero-pad) instead of stretch")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
+    p.add_argument("--tiled", action="store_true",
+                   help="native-resolution tiled inference for images far "
+                        "above the model resolution (ssd_tpu_torch.tiling)")
+    p.add_argument("--tile-overlap", type=float, default=0.25)
+    p.add_argument("--edge-penalty", type=float, default=0.5)
+    p.add_argument("--tta", action="store_true",
+                   help="flip test-time augmentation with weighted box "
+                        "fusion (ssd_tpu_torch.tta)")
     args = p.parse_args(argv)
+    if args.tta and args.tiled:
+        p.error("--tta and --tiled are mutually exclusive")
 
     predictor = Predictor.from_npz(args.npz, preserve_aspect=args.letterbox,
                                    device=args.device)
     results = []
-    for lo in range(0, len(args.images), args.batch_size):
-        chunk = args.images[lo:lo + args.batch_size]
-        # one batched predict per chunk; mixed sizes are resized first
-        out = predictor.predict([read_image(path) for path in chunk])
-        for j, path in enumerate(chunk):
+    if args.tiled:
+        from ssd_tpu_torch.tiling import TiledPredictor
+        tiler = TiledPredictor(predictor, overlap=args.tile_overlap,
+                               edge_penalty=args.edge_penalty)
+        for path in args.images:  # tiles are the batch: a predict an image
             results.append({"image": path, "detections": detection_rows(
-                {k: v[j] for k, v in out.items()}, args.score_threshold)})
+                tiler.predict(read_image(path)), args.score_threshold)})
+    else:
+        if args.tta:
+            from ssd_tpu_torch.tta import TTAPredictor
+            predictor = TTAPredictor(predictor)
+        for lo in range(0, len(args.images), args.batch_size):
+            chunk = args.images[lo:lo + args.batch_size]
+            # one batched predict per chunk; mixed sizes are resized first
+            out = predictor.predict([read_image(path) for path in chunk])
+            for j, path in enumerate(chunk):
+                results.append({"image": path, "detections": detection_rows(
+                    {k: v[j] for k, v in out.items()},
+                    args.score_threshold)})
     text = json.dumps(results, indent=2)
     if args.out:
         with open(args.out, "w") as f:

@@ -19,8 +19,9 @@ calibrated model serves its backbone on calibrated scales as well.
         [--batch-size 8] [--batches 8] [--percentile 99.9] \\
         [--backbone-only] [--device cpu]
 
-The port quantizes MobileNet-v1 only; int8 for the other backbones, with
-a calibrated neck, is ROADMAP.md's M9b.
+Every backbone quantizes; all but MobileNet-v1 only with ``int8_neck``,
+calibrated (``--backbone-only`` is MobileNet-v1's alone, as in the JAX
+package: the other backbones' activations are not all ReLU6-bounded).
 
 ``--data`` draws the calibration batches from a tfrecord glob through the
 input pipeline in eval mode (``data.pipeline.Pipeline``), at the model's
@@ -63,9 +64,9 @@ def calibrate(det: Detector, batches, percentile: float | None = None) -> int:
 
 
 def int8_config(cfg, int8_neck: bool = True):
-    """``cfg`` with ``compute_dtype="int8"`` and ``int8_neck``. The port
-    quantizes MobileNet-v1 only: another backbone raises (int8 with a
-    calibrated neck for them is ROADMAP.md's M9b)."""
+    """``cfg`` with ``compute_dtype="int8"`` and ``int8_neck``; a backbone
+    other than MobileNet-v1 without ``int8_neck`` raises
+    (``models.detector.check_supported``)."""
     qcfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype="int8", int8_neck=int8_neck))
     check_supported(qcfg)

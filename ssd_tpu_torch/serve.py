@@ -15,9 +15,11 @@ so request handling is decoupled from device work:
     ``Predictor.predict_dispatch`` (or ``_group``), which returns before
     the device finishes;
   * a collector thread waits on each handle's event (at most
-    ``pipeline_depth`` handles in flight), issues no device work, and
-    resolves the futures, so the device computes batch k while batch k + 1
-    is formed, packed and copied.
+    ``pipeline_depth`` handles in flight) and resolves the futures, so the
+    device computes batch k while batch k + 1 is formed, packed and
+    copied; it issues no device work, except with ``--tta``, where it runs
+    the fusion of each batch's two views (``tta.TTAPredictor``, on the
+    card) and ``scan_depth`` is 1, as in the JAX package.
 
 Endpoints:
   POST /v1/detect[?score_threshold=]  image bytes -> detections JSON
@@ -27,7 +29,7 @@ Endpoints:
     python -m ssd_tpu_torch.serve --npz model.npz --port 8000 \\
         [--max-batch 32] [--max-wait-ms 5] [--scan-depth 1] \\
         [--warmup-batches all] [--score-threshold 0.3] [--letterbox] \\
-        [--device cpu]
+        [--device cpu] [--tta]
 """
 
 from __future__ import annotations
@@ -270,6 +272,8 @@ class DetectionServer:
         self.predictor = predictor
         self.stats = ServerStats()
         self.requests: "queue.Queue" = queue.Queue(maxsize=max_queue)
+        if not hasattr(predictor, "predict_dispatch_group"):
+            scan_depth = 1  # a wrapper such as tta.TTAPredictor
         self.dispatcher = _Dispatcher(predictor, self.requests, self.stats,
                                       max_batch, max_wait_ms,
                                       scan_depth=scan_depth)
@@ -426,10 +430,16 @@ def main(argv=None) -> None:
                         "(default): every bucket up to --max-batch")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
+    p.add_argument("--tta", action="store_true",
+                   help="serve with flip TTA + weighted box fusion (2x the "
+                        "device work a request; scan_depth drops to 1)")
     args = p.parse_args(argv)
 
     predictor = Predictor.from_npz(args.npz, preserve_aspect=args.letterbox,
                                    device=args.device)
+    if args.tta:
+        from ssd_tpu_torch.tta import TTAPredictor
+        predictor = TTAPredictor(predictor)
     server = DetectionServer(
         predictor, host=args.host, port=args.port, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,

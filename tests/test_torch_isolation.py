@@ -35,7 +35,8 @@ for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
              "ops.distill", "train", "tools.bench_train", "utils.profiling",
              "models.mobilenet_v2", "models.efficientnet",
              "models.shufflenet", "models.resnet", "ops.fused_head",
-             "tools.train_memory"):
+             "tools.train_memory", "tiling", "tta", "ops.wbf",
+             "eval.__main__"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
