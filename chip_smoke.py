@@ -79,6 +79,18 @@ any failure raises:
    CPU's on the same view detections, its time and share; then behind the
    daemon with the TTA predictor (``scan_depth`` 1), each request's JSON
    against the direct call;
+   streaming: ``configs/streaming_1024.json`` (the reference stem at
+   1024x1024, full width and depth) through ``StreamingDetector`` at depth
+   2, bf16 and int8 (calibrated neck): 64 frames from 8 seeded 1024 frames
+   and 8 of 1080x1920 (the native resize stretches them), K1 launched once
+   a frame, no wait for the card under ``streaming.push`` in a profiled
+   window, every frame bit-equal to ``Predictor.predict`` of it; fps,
+   p50/p95 latency, the card's busy time and the host's push time a frame;
+   export: ``export.export_program`` of the flagship at b8, bf16 and int8
+   (calibrated neck), each ``.pt2`` loaded (``load_program``) and run:
+   bit-equal to eager ``Detector.predict`` on the same uint8 batch, K1
+   launched by the loaded program; export and load seconds, the program's
+   ms beside eager's;
    fused_early: the fused ds1+ds2 kernel, driven through its entry point
    (``ssd_tpu_torch.tools.bench_fused_early.run``) on the stem output of
    the served reference model (x1.0) on a 640 px batch of 32, with that
@@ -109,7 +121,7 @@ any failure raises:
    seeded weights) over crowded 640 px batches: 3 warm-up and 10 timed
    steps, with the matching launches of that run counted, the losses
    finite, one batch's kernel matches equal to the plain ones, and the
-   exported ``.npz`` served by ``Predictor.from_npz``;
+   exported artifact directory served by ``Predictor.from_checkpoint``;
    train_resnet50, train_mobilenet_v2, train_efficientnet_lite,
    train_shufflenet: each other shipped config trained the same way, as
    shipped (b64, no accumulation: the ResNet-50 config's step fits since
@@ -128,10 +140,14 @@ any failure raises:
    640 and 768, mosaic, crop, flip, colour and EMA, evaluated at its last
    step, one steady step profiled: no stream sync and no pageable upload
    inside a step, K2 launched once a step and microbatch, the eval mAP
-   finite; the same command again resumes and stops; ``best.npz`` and
-   ``export.npz`` serve with K1 and the label map; eval_cli: ``python -m
-   ssd_tpu_torch.eval`` on ``best.npz`` and the val shards, with and
-   without ``--tta``, the mAP finite and K1 launched once a predict; a run warm-started from
+   finite; the same command again resumes and stops; the artifact
+   directories ``best/`` and ``export/`` serve with K1 and the label map;
+   eval_cli: ``python -m ssd_tpu_torch.eval --export`` on ``best/`` and
+   the val shards, with and without ``--tta``, the mAP finite and K1
+   launched once a predict; export_cli: ``python -m ssd_tpu_torch.export``
+   on the workdir, its weights bit-equal to the loop's ``export/``, and
+   the eval CLI on it (``--export``) and on the same weights as one file
+   (``--npz``) giving the same mAP; a run warm-started from
    that export and distilled from it copies every leaf and logs a finite
    ``distill_loss``; the host pipeline on ``assets/train_golden_v1.npz``'s
    shard gives JAX's stored batches (images bit-equal, or at most 1 unit
@@ -167,11 +183,14 @@ import torch
 
 from ssd_tpu_torch import _build
 from ssd_tpu_torch.config import Config, MatcherConfig, NMSConfig
-from ssd_tpu_torch.convert import (is_scale, load_npz_artifact, scale_name,
+from ssd_tpu_torch.convert import (is_scale, load_npz_artifact,
+                                   save_npz_artifact, scale_name,
                                    seeded_state)
 from ssd_tpu_torch.data import create_tfrecords, native, pipeline, synthetic
 from ssd_tpu_torch.data.resize import resize as plain_resize
 from ssd_tpu_torch.eval import sanity
+from ssd_tpu_torch.export import (export_program, load_inference_artifact,
+                                  load_program)
 from ssd_tpu_torch.models.detector import Detector, normalize_images
 from ssd_tpu_torch.models.fpn import flatten_levels
 from ssd_tpu_torch.models.layers import (conv_int8, dequantize, im2col,
@@ -190,13 +209,15 @@ from ssd_tpu_torch.predictor import (Predictor, detection_rows,
                                      detections_arrays)
 from ssd_tpu_torch.quant import calibrate, int8_config
 from ssd_tpu_torch.serve import DetectionServer
+from ssd_tpu_torch.streaming import PUSH_SPAN, StreamingDetector
 from ssd_tpu_torch.tiling import TiledPredictor
 from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
-                                 kernel_cases, train_memory)
+                                 bench_streaming, kernel_cases, train_memory)
 from ssd_tpu_torch.tta import TTAPredictor, fuse_flip_batch
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
-from ssd_tpu_torch.train import EXPORT_NAME, PROFILE_START, evaluate, train
+from ssd_tpu_torch.train import (BEST_NAME, EXPORT_NAME, PROFILE_START,
+                                 evaluate, train)
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
                                       make_train_step)
 from ssd_tpu_torch.utils import profiling
@@ -204,6 +225,7 @@ from ssd_tpu_torch.utils import profiling
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "coco_mobilenet_640_flagship.json")
 REFERENCE = os.path.join(ROOT, "configs", "coco_mobilenet_640.json")
+STREAMING = os.path.join(ROOT, "configs", "streaming_1024.json")
 ASSET = os.path.join(ROOT, "ssd_tpu_torch", "assets", "sanity_v1.npz")
 GOLDEN = os.path.join(ROOT, "ssd_tpu_torch", "assets", "golden_cells_v1.npz")
 TRAIN_REF = os.path.join(ROOT, "ssd_tpu_torch", "assets", "train_ref_v1.npz")
@@ -232,6 +254,11 @@ MEMORY_CONFIGS = ("coco_retinanet_resnet50_640.json",
                   "coco_mobilenet_v2_640.json",
                   "coco_mobilenet_640_flagship.json")
 TILED_IMAGE_HW = (2160, 3840)  # a 4K frame: 40 flagship tiles + full pass
+STREAM_FRAMES = 64  # timed frames a streaming run, after its warmup
+STREAM_DEPTH = 2
+STREAM_PROFILED = 16  # frames under the profiler after the timed ones
+STREAM_HD_HW = (1080, 1920)  # frames that the native resize stretches
+EXPORT_BATCH = 8
 GOLDEN_BARS = dict(atol=2e-4, rtol=2e-3)  # tests/test_golden.py's
 LOSS_RTOL = 1e-4  # step-0 loss terms against JAX's
 GRAD_NORM_RTOL = 2e-3  # step-0 gradient norm (train_sanity's bar)
@@ -352,8 +379,10 @@ def check_nms_case(case: kernel_cases.NMSCase, name: str,
     return row
 
 
-def phase_nms() -> dict:
-    """Every NMS case; the serving one (``serve_b32``) timed and returned."""
+def phase_nms() -> tuple[dict, dict]:
+    """Every NMS case; the serving one (``serve_b32``) timed and returned,
+    with the timed serving case at the streamed frame's batch (one) and
+    the exported program's (``EXPORT_BATCH``) by name."""
     main = None
     for case in kernel_cases.nms_cases(32, 1024, 80,
                                        max_k=nms_cuda._max_k(DEVICE)):
@@ -371,7 +400,17 @@ def phase_nms() -> dict:
     row = check_nms_case(b64, "eval_b64")
     if row["live_problems"] != row["G"]:
         raise AssertionError("eval_b64 must have every problem live")
-    return main
+    shapes = {}
+    for n, name in ((1, "stream_b1"), (EXPORT_BATCH, f"export_b{EXPORT_BATCH}")):
+        case = next(c for c in kernel_cases.nms_cases(
+            n, 1024, 80, max_k=nms_cuda._max_k(DEVICE)) if c.name == "serve")
+        row = check_nms_case(case, name, timed=True)
+        if row["live_problems"] != row["G"]:
+            raise AssertionError(f"{name} must have every problem live")
+        shapes[name] = {k: row[k] for k in (
+            "N", "Q", "C", "K", "max_abs_err", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by")}
+    return main, shapes
 
 
 # ------------------------------------------------------------------ models
@@ -1845,8 +1884,8 @@ def phase_train_flagship(power_line: str, warmup: int = 3,
         del det
 
         # the export serves
-        pred = Predictor.from_npz(os.path.join(workdir, EXPORT_NAME),
-                                  device=DEVICE)
+        pred = Predictor.from_checkpoint(os.path.join(workdir, EXPORT_NAME),
+                                         device=DEVICE)
         served = b["images"][:8]
         out = pred.predict(served)
         _check_output(out, len(served), cfg.nms.max_boxes)
@@ -2103,12 +2142,14 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
     """The shipped flagship trained through the CLI from tfrecords at
     full width (batch 64, 512/640/768, mosaic, crop, flip, colour, EMA),
     evaluated at its last step; re-run (it resumes and stops); its
-    ``best.npz`` and ``export.npz`` served; a warm-started run distilled
+    ``best/`` and ``export/`` served; a warm-started run distilled
     from that export; the host pipeline against JAX's golden and timed
     alone; K2 against its plain version on a pipeline batch at each scale;
     ``evaluate`` against JAX's numbers on the eval golden; no wait for the
     card inside a profiled steady step; ``python -m ssd_tpu_torch.eval``
-    on ``best.npz`` and the val shards, with and without ``--tta``.
+    on ``best/`` and the val shards, with and without ``--tta``; the
+    export CLI on the workdir, then the eval CLI on its directory and on
+    the same weights as a ``.npz`` (``export_cli_check``).
     Returns (K2 launches of the training run, K1 launches of its
     evaluation and the serves, K1 launches of the eval golden's
     ``evaluate``, K1 launches of the eval CLI runs)."""
@@ -2181,9 +2222,9 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
                                           is_training=False, batch_size=8)))
         nms_cuda.launches = 0
         served = {}
-        for name in ("best.npz", "export.npz"):
-            pred = Predictor.from_npz(os.path.join(workdir, name),
-                                      device=DEVICE)
+        for name in (BEST_NAME, EXPORT_NAME):
+            pred = Predictor.from_checkpoint(os.path.join(workdir, name),
+                                             device=DEVICE)
             out = pred.predict(val["images"])
             _check_output(out, 8, cfg.nms.max_boxes)
             if pred.label_map is None or len(pred.label_map) != 80:
@@ -2217,10 +2258,13 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
         if t_summary["kernel_launches"]["match"] != PIPE_TEACHER_STEPS * accum:
             raise AssertionError(f"distilled run: {t_summary}")
 
-        eval_cli = eval_cli_check(os.path.join(workdir, "best.npz"),
+        eval_cli = eval_cli_check(os.path.join(workdir, BEST_NAME),
                                   data["val"])
-        emit({"phase": "eval_cli", "npz": "train_pipeline's best.npz",
+        emit({"phase": "eval_cli", "export": "train_pipeline's best/",
               "val": PIPE_VAL_EXAMPLES, **eval_cli})
+        export_cli = export_cli_check(workdir, root, data["val"])
+        emit({"phase": "export_cli", "val": PIPE_VAL_EXAMPLES,
+              **export_cli})
         golden = golden_pipeline_check()
         alone, scale_batches = pipeline_ms_by_scale(data["train"], cfg)
         match_by_scale = pipeline_match_check(cfg, scale_batches)
@@ -2268,7 +2312,9 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
           "cli_reported_wall_s": summary["wall_s"]})
     return (match_launches, eval_nms + serve_nms,
             eval_golden["nms_launches"],
-            sum(r["kernel_launches"]["nms"] for r in eval_cli.values()))
+            sum(r["kernel_launches"]["nms"] for r in eval_cli.values())
+            + sum(r["kernel_launches"]["nms"] for r in
+                  export_cli["eval"].values()))
 
 
 # ------------------------------------------------------------------ M10: tiling, TTA, eval CLI
@@ -2439,14 +2485,17 @@ def phase_tta(power_line: str) -> tuple[int, int]:
     return launches, daemon_launches
 
 
-def eval_cli_check(npz: str, val_pattern: str) -> dict:
-    """``python -m ssd_tpu_torch.eval`` on ``npz`` and the val shards, in a
-    subprocess, without and with ``--tta``: the closing JSON line of each
-    (mAP finite, K1 launched once a predict)."""
+def eval_cli_check(artifact: str, val_pattern: str, flag: str = "--export",
+                   modes: tuple = (False, True), extra: tuple = ()) -> dict:
+    """``python -m ssd_tpu_torch.eval`` on ``artifact`` (``flag``:
+    ``--export`` for a directory, ``--npz`` for a file) and the val shards,
+    in a subprocess, without and with ``--tta`` (``modes``): the closing
+    JSON line of each (mAP finite, K1 launched once a predict). ``extra``:
+    more arguments of the CLI."""
     rows = {}
-    for tta in (False, True):
-        cmd = [sys.executable, "-m", "ssd_tpu_torch.eval", "--npz", npz,
-               "--val-pattern", val_pattern, "--batch-size", "32"]
+    for tta in modes:
+        cmd = [sys.executable, "-m", "ssd_tpu_torch.eval", flag, artifact,
+               "--val-pattern", val_pattern, "--batch-size", "32", *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd + ["--tta"] * tta, cwd=ROOT,
                               capture_output=True, text=True,
@@ -2463,6 +2512,281 @@ def eval_cli_check(npz: str, val_pattern: str) -> dict:
         last["wall_s"] = time.perf_counter() - t0
         rows["tta" if tta else "plain"] = last
     return rows
+
+
+def export_cli_check(workdir: str, root: str, val_pattern: str) -> dict:
+    """``python -m ssd_tpu_torch.export`` on the training workdir (its
+    last checkpoint, EMA weights) into a new artifact directory: bit-equal
+    to the train loop's own ``export/``; then ``python -m
+    ssd_tpu_torch.eval --export`` on it and ``--npz`` on the same weights
+    as one file, keeping nearly every candidate (score threshold 1e-6):
+    the same mAP and the same detections (``--dump-coco``)."""
+    out = os.path.join(root, "cli_export")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ssd_tpu_torch.export",
+                           "--workdir", workdir, "--output", out], cwd=ROOT,
+                          capture_output=True, text=True,
+                          timeout=PIPE_TIMEOUT_S)
+    export_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export CLI failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    cfg, got = load_inference_artifact(out)
+    _, want = load_inference_artifact(os.path.join(workdir, EXPORT_NAME))
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k])
+                                        for k in want):
+        raise AssertionError("the export CLI's weights differ from the "
+                             "train loop's export")
+    npz = os.path.join(root, "cli_export.npz")
+    save_npz_artifact(npz, cfg, got)
+    dumps = [os.path.join(root, f"coco_{k}.json") for k in ("dir", "npz")]
+    every = ("--set", "nms.score_threshold=1e-6", "--dump-coco")
+    by_dir = eval_cli_check(out, val_pattern, "--export", (False,),
+                            (*every, dumps[0]))
+    by_npz = eval_cli_check(npz, val_pattern, "--npz", (False,),
+                            (*every, dumps[1]))
+    rows = []
+    for path in dumps:
+        with open(path) as f:
+            rows.append(json.load(f))
+    keys = ("mAP", "AP50", "AP75")
+    if (any(by_dir["plain"][k] != by_npz["plain"][k] for k in keys)
+            or not rows[0] or rows[0] != rows[1]):
+        raise AssertionError(f"eval --export {by_dir} differs from --npz "
+                             f"{by_npz}, or their detections do")
+    return {"export_s": export_s, "stdout": proc.stdout.strip()[-300:],
+            "equal_to_train_export": True,
+            "eval": {"export": by_dir["plain"], "npz": by_npz["plain"]},
+            "same_map": True, "same_detections": len(rows[0])}
+
+
+# ------------------------------------------------------------------ M10.3, M10.4: streaming, export
+
+def _stream_pool(cfg: Config) -> list:
+    """8 seeded frames at the model resolution and 8 of 1080x1920, in
+    turns."""
+    rng = np.random.default_rng(51)
+    h, w = cfg.image_hw()
+    square = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for _ in range(8)]
+    hd = [rng.integers(0, 256, (*STREAM_HD_HW, 3), dtype=np.uint8)
+          for _ in range(8)]
+    return [f for pair in zip(square, hd) for f in pair]
+
+
+def stream_run(cfg: Config, pool: list, power_line: str) -> dict:
+    """One ``StreamingDetector`` (depth 2, weights seeded from 0, class bias
+    -2.5; int8 configs calibrated on two seeded frames at the model
+    resolution) over ``STREAM_FRAMES`` frames of ``pool`` after its
+    warmup, K1 launches counted; then ``STREAM_PROFILED`` more under the
+    profiler: no wait for the card under ``streaming.push``, the card's
+    busy time, its idle share of that window and the host's push time a
+    frame; every timed frame's detections bit-equal to
+    ``Predictor.predict`` of the same frame, and K1 held to its plain
+    version on one frame's candidates (N=1)."""
+    stream = StreamingDetector(cfg, None, depth=STREAM_DEPTH, device=DEVICE)
+    with torch.no_grad():
+        stream.detector.model.head.class_net.predict.bias.fill_(
+            FLAGSHIP_CLASS_BIAS)
+    h, w = cfg.image_hw()
+    calibration_s = None
+    if cfg.model.compute_dtype == "int8":
+        noise = np.random.default_rng(8).integers(0, 256, (2, h, w, 3),
+                                                  dtype=np.uint8)
+        t0 = time.perf_counter()
+        calibrate(stream.detector, [noise])
+        torch.cuda.synchronize()
+        calibration_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    nms_cuda.launches = 0
+    results = []
+    t0 = time.perf_counter()
+    for i in range(STREAM_FRAMES):
+        results.extend(stream.push(pool[i % len(pool)]))
+    results.extend(stream.flush())
+    wall = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    stats = stream.stats()
+    if len(results) != STREAM_FRAMES or launches != STREAM_FRAMES:
+        raise AssertionError(f"streaming: {len(results)} results, "
+                             f"{launches} NMS launches for {STREAM_FRAMES} "
+                             "frames")
+    for r in results:
+        _check_output({k: np.asarray(r[k])[None] for k in DET_KEYS}, 1,
+                      cfg.nms.max_boxes)
+        if not isinstance(r["num_boxes"], int):
+            raise AssertionError("num_boxes is not an int")
+
+    summary = bench_streaming.profile_pushes(stream, pool, STREAM_PROFILED)
+    stalls = profiling.syncs_under(summary, (PUSH_SPAN,))
+    pageable = profiling.pageable_uploads(summary)
+    staging_ms = sum(x["ms"] for x in profiling.staging_waits(summary))
+    if stalls or pageable:
+        raise AssertionError(f"a push waited for the card: syncs {stalls}, "
+                             f"pageable uploads {pageable}")
+    push_ms = (summary["host_ms"][PUSH_SPAN]
+               / summary["span_calls"][PUSH_SPAN])
+    device_ms = summary["device_busy_ms"] / STREAM_PROFILED
+    idle = 1.0 - summary["device_busy_ms"] / summary["wall_ms"]
+    if not 0.0 <= idle < 1.0:
+        raise AssertionError(f"streaming: device idle share {idle} of the "
+                             "profiled window is out of range")
+
+    # K1 against its plain version on a frame's own candidates
+    feed = torch.from_numpy(stream.predictor._feed(pool[0][None])).to(DEVICE)
+    _hold_k1(*stream.detector.candidates(feed), cfg,
+             f"streaming {cfg.model.compute_dtype}")
+
+    # each frame against the predictor's own call on the same frame
+    want = [stream.predictor.predict(f) for f in pool]
+    differ = [i for i, r in enumerate(results) if not all(
+        np.array_equal(r[k], want[i % len(pool)][k]) for k in DET_KEYS)]
+    if differ:
+        raise AssertionError(f"streamed frames {differ} differ from "
+                             "Predictor.predict")
+    return {"dtype": cfg.model.compute_dtype,
+            "feed": "packed s8" if stream.packed else "raw uint8",
+            "depth": STREAM_DEPTH, "frames": STREAM_FRAMES,
+            "fps": stats["fps"], "wall_fps": STREAM_FRAMES / wall,
+            "p50_latency_ms": stats["p50_latency_s"] * 1e3,
+            "p95_latency_ms": stats["p95_latency_s"] * 1e3,
+            "device_ms_per_frame": device_ms,
+            "device_fps": 1e3 / device_ms,
+            "host_push_ms": push_ms,
+            "profiled_fps": STREAM_PROFILED / summary["wall_ms"] * 1e3,
+            "device_idle_share": idle,
+            "staging_wait_ms": staging_ms, "nms_launches": launches,
+            "num_boxes_mean": float(np.mean([r["num_boxes"]
+                                             for r in results])),
+            "equal_to_predictor": True, "warmup_s": warmup_s,
+            "calibration_s": calibration_s,
+            "card": power_line}
+
+
+def phase_streaming(power_line: str) -> dict:
+    """``configs/streaming_1024.json`` (the reference stem at 1024, 80
+    classes, full width and depth) streamed in bf16 and in int8 with
+    ``int8_neck`` (``stream_run``), from 8 seeded 1024 frames and 8 of
+    1080x1920 in turns. Returns the K1 launches of each timed run."""
+    cfg = Config.load(STREAMING)
+    assert cfg.image_hw() == (1024, 1024)
+    assert cfg.model.compute_dtype == "bfloat16"
+    pool = _stream_pool(cfg)
+    rows = [stream_run(cfg, pool, power_line)]
+    torch.cuda.empty_cache()
+    rows.append(stream_run(int8_config(cfg), pool, power_line))
+    emit({"phase": "streaming", "config": os.path.relpath(STREAMING, ROOT),
+          "stem_schedule": cfg.model.stem_schedule, "rows": rows,
+          "note": "seeded weights, class bias -2.5; fps and latency from "
+                  "StreamingDetector.stats (host clock); device ms a frame "
+                  f"is the profiler's busy time over {STREAM_PROFILED} "
+                  "more frames, the idle share and profiled_fps over the "
+                  "same window (host clock, first push to flushed); "
+                  "host_push_ms the streaming.push span (resize and "
+                  "enqueue)"})
+    return {"streaming": rows[0]["nms_launches"],
+            "streaming_int8": rows[1]["nms_launches"]}
+
+
+def phase_export(power_line: str) -> int:
+    """``export.export_program`` of the shipped flagship (seeded weights,
+    class bias -2.5) at b8, in bf16 and in int8 with its neck calibrated
+    on a seeded batch of 8; each program loaded (``load_program``) and run
+    on a seeded uint8 batch: its outputs bit-equal to eager
+    ``Detector.predict`` of the same batch, K1 launched once by it and
+    held to its plain version on the batch's candidates; the
+    export and load seconds, and the program's ms beside eager's, with
+    the device ops and busy ms of one call of each. Returns
+    the K1 launches of the two loaded programs' checked runs."""
+    root = tempfile.mkdtemp(prefix="ssd_export_")
+    rows, launches = [], 0
+    try:
+        for int8 in (False, True):
+            cfg = Config.load(FLAGSHIP)
+            if int8:
+                cfg = int8_config(cfg)
+            pred = Predictor(cfg, None, device=DEVICE)
+            with torch.no_grad():
+                pred.detector.model.head.class_net.predict.bias.fill_(
+                    FLAGSHIP_CLASS_BIAS)
+            if int8:
+                bench_serve.calibrate_seeded(pred)
+            det = pred.detector
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = export_program(os.path.join(root, cfg.model.compute_dtype),
+                                  cfg, det.model.state_dict(),
+                                  batch_size=EXPORT_BATCH, device=DEVICE)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            program = load_program(path)
+            load_s = time.perf_counter() - t0
+            h, w = cfg.image_hw()
+            batch = np.random.default_rng(61).integers(
+                0, 256, (EXPORT_BATCH, h, w, 3), dtype=np.uint8)
+            want = det.predict(batch)
+            _hold_k1(*det.candidates(batch), cfg,
+                     f"export b{EXPORT_BATCH} {cfg.model.compute_dtype}")
+            torch.cuda.synchronize()
+            nms_cuda.launches = 0
+            got = program(batch)
+            torch.cuda.synchronize()
+            n = nms_cuda.launches
+            if n != 1:
+                raise AssertionError(f"the loaded program launched K1 {n} "
+                                     "times")
+            launches += n
+            for k in DET_KEYS:
+                if not torch.equal(got[k], getattr(want, k)):
+                    raise AssertionError(f"exported program's {k} differs "
+                                         f"from eager ({cfg.model.compute_dtype})")
+            feed = torch.from_numpy(batch).to(DEVICE)
+
+            def timed(fn):
+                times = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(feed)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return float(np.median(times))
+
+            def device_work(fn):
+                """One call's device ops and busy ms (profiler)."""
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    fn(feed)
+                    torch.cuda.synchronize()
+                summary = profiling.summarize(prof, "export.")
+                return {"device_ops": summary["device_ops"],
+                        "device_busy_ms": summary["device_busy_ms"]}
+            rows.append({"dtype": cfg.model.compute_dtype,
+                         "batch": EXPORT_BATCH, "file": os.path.basename(path),
+                         "file_mib": os.path.getsize(path) / 2 ** 20,
+                         "export_s": export_s, "load_s": load_s,
+                         "program_ms": timed(program),
+                         "eager_ms": timed(det.predict),
+                         "program_device": device_work(program),
+                         "eager_device": device_work(det.predict),
+                         "num_boxes_mean": float(
+                             got["num_boxes"].float().mean()),
+                         "bit_equal_to_eager": True, "nms_launches": n})
+            del pred, det, program
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "export", "config": os.path.relpath(FLAGSHIP, ROOT),
+          "rows": rows,
+          "note": "host clock around each call ended by a synchronize, "
+                  "median of 5, the feed already on the card; on "
+                  + power_line})
+    return launches
 
 
 def phase_train_memory(power_line: str) -> int:
@@ -2506,7 +2830,7 @@ def main() -> int:
           "ptxas": ptxas})
 
     phase_host_ingest(power_line)
-    main_nms = phase_nms()
+    main_nms, nms_shapes = phase_nms()
     phase_sanity()
     nms_launches_golden = phase_serve_golden()
     nms_launches_int8_sanity = phase_int8_sanity(power_line)
@@ -2533,6 +2857,8 @@ def main() -> int:
     nms_launches_new["tiled"] = phase_tiled(power_line)
     (nms_launches_new["tta"],
      nms_launches_new["tta_daemon"]) = phase_tta(power_line)
+    nms_launches_new.update(phase_streaming(power_line))
+    nms_launches_new["export"] = phase_export(power_line)
     main_early, early_launches = phase_fused_early(power_line)
     main_match = phase_match()
     phase_train_sanity()
@@ -2569,7 +2895,7 @@ def main() -> int:
         "timing": main_nms["timing"], "call_ms": main_nms["call_ms"],
         "plain_ms": main_nms["plain_ms"], "bound_ms": main_nms["bound_ms"],
         "bound_by": main_nms["bound_by"], "library_ms": None,
-        "ptxas": ptxas.get("nms")}, {
+        "by_shape": nms_shapes, "ptxas": ptxas.get("nms")}, {
         "name": "match", "route": "cuda",
         "source": "ssd_tpu_torch/csrc/match.cu",
         "replaces": "ssd_tpu/ops/matching_pallas.py:60",

@@ -30,6 +30,7 @@ has ``int8_neck``, and are absent otherwise (the backbone's static scales).
 
 from __future__ import annotations
 
+import json
 from collections.abc import Mapping
 
 import numpy as np
@@ -49,6 +50,7 @@ _LEAF_NAMES = {
 
 _STATE_PREFIX = "state/"
 _CONFIG_KEY = "config_json"
+LABEL_MAP_KEY = "label_map"  # the npz entry: JSON {class id: name}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -169,17 +171,23 @@ def _convert(variables: dict, want: dict[str, tuple]) -> dict[str, torch.Tensor]
     return state
 
 
-def save_npz_artifact(path: str, cfg: Config, state: dict,
-                      **extra: np.ndarray) -> None:
-    """One compressed ``.npz``: the state dict (calibrated scales included),
-    the config text, and any ``extra`` arrays under their own names. An
-    ``int8_neck`` config without scales raises: it could not serve."""
+def check_scales(cfg: Config, state: dict) -> None:
+    """Raises for an ``int8_neck`` config whose state carries no calibrated
+    scales: such an artifact could not serve."""
     if (cfg.model.compute_dtype == "int8" and cfg.model.int8_neck
             and not any(is_scale(k) for k in state)):
         raise ValueError(
             "cfg.model.int8_neck is set but the state carries no calibrated "
             "scales (the JAX package's 'quant' collection): calibrate first "
             "(ssd_tpu_torch.quant.calibrate or python -m ssd_tpu_torch.quant)")
+
+
+def save_npz_artifact(path: str, cfg: Config, state: dict,
+                      **extra: np.ndarray) -> None:
+    """One compressed ``.npz``: the state dict (calibrated scales included),
+    the config text, and any ``extra`` arrays under their own names. An
+    ``int8_neck`` config without scales raises: it could not serve."""
+    check_scales(cfg, state)
     arrays = {_STATE_PREFIX + k: v.detach().cpu().numpy()
               for k, v in state.items()}
     clash = set(extra) & (set(arrays) | {_CONFIG_KEY})
@@ -196,3 +204,17 @@ def load_npz_artifact(path: str) -> tuple[Config, dict[str, torch.Tensor]]:
         state = {k[len(_STATE_PREFIX):]: torch.from_numpy(z[k])
                  for k in z.files if k.startswith(_STATE_PREFIX)}
     return cfg, state
+
+
+def label_map_array(label_map: dict[int, str]) -> np.ndarray:
+    """A label map as the npz entry ``save_npz_artifact(..., label_map=)``
+    stores and ``load_label_map`` reads."""
+    return np.array(json.dumps({str(k): v for k, v in label_map.items()}))
+
+
+def load_label_map(path: str) -> dict[int, str] | None:
+    """The label map of ``save_npz_artifact``'s file, if it carries one."""
+    with np.load(path, allow_pickle=False) as z:
+        if LABEL_MAP_KEY not in z.files:
+            return None
+        return {int(k): v for k, v in json.loads(str(z[LABEL_MAP_KEY])).items()}

@@ -1,7 +1,7 @@
-"""Standalone evaluation CLI: a ``.npz`` artifact + val tfrecords -> the
+"""Standalone evaluation CLI: an inference artifact + val tfrecords -> the
 mAP table (the port's ``ssd_tpu/eval/__main__.py``).
 
-    python -m ssd_tpu_torch.eval --npz model.npz \\
+    python -m ssd_tpu_torch.eval --export DIR_OR_FILE.npz \\
         [--val-pattern "data/val-*-of-*"] [--batch-size 16] [--limit N] \\
         [--dump-coco out.json] [--set key=val ...] [--tta] [--device cpu]
 
@@ -12,10 +12,11 @@ AP50/75, by area, AR and per-class AP50. ``--tta`` also predicts each
 batch's horizontal flip and fuses the two views by weighted box fusion
 (``tta.fuse_flip_batch``, on the device). ``--dump-coco`` writes
 pycocotools results JSON (``image/source_id`` from the shards, labels
-mapped back through ``<prefix>-category_ids.json`` where it is). The JAX
-package takes an export directory (``--export``); the port's artifact is
-the ``.npz`` (``--npz``). After the table, one JSON line: the headline
-numbers, the images seen and the suppression kernel's launches.
+mapped back through ``<prefix>-category_ids.json`` where it is). The
+artifact (``--export``, or its older name ``--npz``) is a directory
+(``export.save_inference_artifact``) or a single-file ``.npz``. After the table, one JSON line:
+the headline numbers, the images seen and the suppression kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ import json
 import os
 
 import numpy as np
+
+from ssd_tpu_torch.export import (add_artifact_args,
+                                  load_artifact_label_map,
+                                  load_inference_artifact)
 
 ROWS = (
     ("AP @[.50:.95] | area=   all | maxDets=100", "mAP"),
@@ -68,7 +73,7 @@ def category_ids_for(pattern: str) -> dict[int, int] | None:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--npz", required=True, help="inference artifact (.npz)")
+    add_artifact_args(p)
     p.add_argument("--val-pattern", default=None,
                    help="override the config's data.val_file_pattern")
     p.add_argument("--batch-size", type=int, default=16)
@@ -87,17 +92,15 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
 
     from ssd_tpu_torch.config import Config
-    from ssd_tpu_torch.convert import load_npz_artifact
     from ssd_tpu_torch.data.pipeline import Pipeline
     from ssd_tpu_torch.eval.coco_map import (DetectionEvaluator,
                                              detections_to_coco)
     from ssd_tpu_torch.models.detector import Detector
     from ssd_tpu_torch.ops import nms_cuda
-    from ssd_tpu_torch.predictor import load_label_map
     from ssd_tpu_torch.tools.bench_serve import apply_overrides
     from ssd_tpu_torch.tta import fuse_flip_batch
 
-    cfg, state = load_npz_artifact(args.npz)
+    cfg, state = load_inference_artifact(args.artifact)
     if args.val_pattern:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, val_file_pattern=args.val_pattern))
@@ -105,7 +108,7 @@ def main(argv=None) -> dict:
         cfg = Config.from_dict(apply_overrides(json.loads(cfg.to_json()),
                                                args.set))
     detector = Detector(cfg, state, device=args.device)
-    label_map = load_label_map(args.npz)
+    label_map = load_artifact_label_map(args.artifact)
 
     def predict(images: np.ndarray) -> dict:
         out = detector.predict(np.ascontiguousarray(images))

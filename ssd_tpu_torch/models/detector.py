@@ -312,23 +312,10 @@ class Detector:
     @torch.inference_mode()
     def candidates(self, images) -> tuple[torch.Tensor, torch.Tensor]:
         """uint8 NHWC images (or the packed s8 feed) -> the candidates that
-        enter NMS, ``boxes (N, Q, 4)`` and ``scores (N, Q, C)``, selected as
-        the JAX package's ``Detector.predict`` dispatches: the fused head
-        (``head_final_kernel=1``), else the cells selection
-        (``nms.select="cells"``), else the flat anchor-wise one."""
-        cfg = self.cfg
-        if cfg.model.head_final_kernel == 1:
-            cls_trunk, box_trunk = self.model.eval()(self.as_input(images),
-                                                     trunk_only=True)
-            return fused_head_candidates(
-                cls_trunk, box_trunk, self.model.head, self.anchors,
-                cfg.num_classes, cfg.anchors.num_anchors_per_cell, cfg.nms)
-        raw = self.raw(images)
-        if cfg.nms.select == "cells":
-            return select_candidates_cells(raw, self.anchors,
-                                           cfg.num_classes, cfg.nms)
-        logits, deltas = flatten_levels(raw, cfg.num_classes)
-        return select_candidates(logits, deltas, self.anchors, cfg.nms)
+        enter NMS, ``boxes (N, Q, 4)`` and ``scores (N, Q, C)``
+        (``select_for_nms``)."""
+        return select_for_nms(self.model.eval(), self.anchors, self.cfg,
+                              self.as_input(images))
 
     @torch.inference_mode()
     def predict(self, images) -> Detections:
@@ -337,3 +324,22 @@ class Detector:
         card (its plain version on the CPU) or Soft-NMS
         (``postprocess.run_nms``)."""
         return run_nms(*self.candidates(images), self.cfg.nms)
+
+
+def select_for_nms(model: SSDModel, anchors: torch.Tensor, cfg: Config,
+                   images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``model`` (in eval mode) on device ``images`` -> the candidates that
+    enter NMS, selected as the JAX package's ``Detector.predict``
+    dispatches: the fused head (``head_final_kernel=1``), else the cells
+    selection (``nms.select="cells"``), else the flat anchor-wise one. No
+    grad mode of its own, so that ``torch.export`` traces it (``export.py``)."""
+    if cfg.model.head_final_kernel == 1:
+        cls_trunk, box_trunk = model(images, trunk_only=True)
+        return fused_head_candidates(
+            cls_trunk, box_trunk, model.head, anchors, cfg.num_classes,
+            cfg.anchors.num_anchors_per_cell, cfg.nms)
+    raw = model(images)
+    if cfg.nms.select == "cells":
+        return select_candidates_cells(raw, anchors, cfg.num_classes, cfg.nms)
+    logits, deltas = flatten_levels(raw, cfg.num_classes)
+    return select_candidates(logits, deltas, anchors, cfg.nms)

@@ -12,8 +12,11 @@ raise: there is no fallback. CPU tensors take the plain version,
 activity sort is needed: the kernel takes any K whose boxes fit in shared
 memory, and an empty problem exits on its own.
 
-``launches`` counts the kernel's launches in this process; a caller resets
-it to 0 before a run it wants to account for.
+``suppress`` goes through the operator ``ssd_tpu_torch::nms_suppress``
+(``torch.library``), so that an exported predict program (``export.py``)
+calls the kernel as eager PyTorch does. ``launches`` counts the kernel's
+launches in this process, from a loaded program's too; a caller resets it
+to 0 before a run it wants to account for.
 """
 
 from __future__ import annotations
@@ -116,14 +119,35 @@ def suppress_cuda(boxes: torch.Tensor, top_idx: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("ssd_tpu_torch::nms_suppress", mutates_args=(),
+                         device_types="cpu")
+def nms_suppress(boxes: torch.Tensor, top_idx: torch.Tensor,
+                 top_scores: torch.Tensor,
+                 iou_threshold: float) -> torch.Tensor:
+    """The suppression as one operator, so that ``torch.export`` records it
+    as a call (it cannot trace the kernel's ctypes launch): on CPU tensors
+    the plain version, on CUDA tensors the kernel, which launches or
+    raises. Loading an exported program needs this module imported."""
+    return nms.suppress(boxes, top_idx, top_scores, iou_threshold)
+
+
+@nms_suppress.register_kernel("cuda")
+def _nms_suppress_cuda(boxes, top_idx, top_scores, iou_threshold):
+    return suppress_cuda(boxes, top_idx, top_scores, iou_threshold)
+
+
+@nms_suppress.register_fake
+def _nms_suppress_fake(boxes, top_idx, top_scores, iou_threshold):
+    return torch.empty_like(top_scores)
+
+
 def suppress(boxes: torch.Tensor, top_idx: torch.Tensor,
              top_scores: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
-    if boxes.device.type == "cuda":
-        return suppress_cuda(boxes, top_idx, top_scores, iou_threshold)
-    if boxes.device.type != "cpu":
+    """Kernel for CUDA tensors, plain version for CPU tensors, through the
+    operator ``ssd_tpu_torch::nms_suppress``."""
+    if boxes.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {boxes.device}")
-    return nms.suppress(boxes, top_idx, top_scores, iou_threshold)
+    return nms_suppress(boxes, top_idx, top_scores, float(iou_threshold))
 
 
 def batched_nms_cuda(boxes: torch.Tensor, scores: torch.Tensor,

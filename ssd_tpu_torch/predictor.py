@@ -24,7 +24,8 @@ outputs into pinned host tensors, and one event. ``predict_collect`` waits
 on that event alone, so collecting batch k never waits for batch k + 1,
 and it issues no device work.
 
-    python -m ssd_tpu_torch.predictor --npz model.npz --images a.jpg b.png \\
+    python -m ssd_tpu_torch.predictor --export DIR_OR_FILE.npz \\
+        --images a.jpg b.png \\
         [--out dets.json] [--batch-size 8] [--score-threshold 0.3] \\
         [--letterbox] [--device cpu] \\
         [--tta | --tiled [--tile-overlap 0.25] [--edge-penalty 0.5]]
@@ -43,14 +44,15 @@ import torch
 from torch.profiler import record_function
 
 from ssd_tpu_torch.config import Config
-from ssd_tpu_torch.convert import load_npz_artifact
 from ssd_tpu_torch.data import native
 from ssd_tpu_torch.device import PinnedStaging
+from ssd_tpu_torch.export import (add_artifact_args,
+                                  load_artifact_label_map,
+                                  load_inference_artifact)
 from ssd_tpu_torch.models.detector import Detector
 from ssd_tpu_torch.ops.ingest import packed_shape
 
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
-LABEL_MAP_KEY = "label_map"  # the npz entry: JSON {class id: name}
 
 
 def _as_hw(size) -> tuple[int, int]:
@@ -76,19 +78,6 @@ def letterbox_image(image: np.ndarray,
     canvas = np.zeros((th, tw, 3), np.uint8)
     canvas[:nh, :nw] = native.resize(np.ascontiguousarray(image), nh, nw)
     return canvas, nh / th, nw / tw
-
-
-def label_map_array(label_map: dict[int, str]) -> np.ndarray:
-    """A label map as the npz entry ``save_npz_artifact(..., label_map=)``
-    stores and ``Predictor.from_npz`` reads."""
-    return np.array(json.dumps({str(k): v for k, v in label_map.items()}))
-
-
-def load_label_map(path: str) -> dict[int, str] | None:
-    with np.load(path, allow_pickle=False) as z:
-        if LABEL_MAP_KEY not in z.files:
-            return None
-        return {int(k): v for k, v in json.loads(str(z[LABEL_MAP_KEY])).items()}
 
 
 class Predictor:
@@ -125,12 +114,19 @@ class Predictor:
         self.staging = PinnedStaging(depth=3)
 
     @classmethod
-    def from_npz(cls, path: str, **kwargs) -> "Predictor":
-        """A predictor for an ``.npz`` artifact (``convert.save_npz_artifact``),
-        with its label map where the file carries one (``label_map_array``)."""
-        cfg, state = load_npz_artifact(path)
-        kwargs.setdefault("label_map", load_label_map(path))
+    def from_checkpoint(cls, path: str, **kwargs) -> "Predictor":
+        """A predictor for an inference artifact: a directory
+        (``export.save_inference_artifact``) or a single-file ``.npz``,
+        with its label map where it has one."""
+        cfg, state = load_inference_artifact(path)
+        kwargs.setdefault("label_map", load_artifact_label_map(path))
         return cls(cfg, state, **kwargs)
+
+    @classmethod
+    def from_npz(cls, path: str, **kwargs) -> "Predictor":
+        """A predictor for an ``.npz`` artifact (``convert.save_npz_artifact``,
+        its label map from ``label_map_array``): ``from_checkpoint``."""
+        return cls.from_checkpoint(path, **kwargs)
 
     # -------------------------------------------------------------- serving
 
@@ -404,7 +400,7 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--npz", required=True, help="inference artifact (.npz)")
+    add_artifact_args(p)
     p.add_argument("--images", nargs="+", required=True)
     p.add_argument("--out", default=None, help="JSON output (default stdout)")
     p.add_argument("--batch-size", type=int, default=8)
@@ -425,8 +421,9 @@ def main(argv=None) -> None:
     if args.tta and args.tiled:
         p.error("--tta and --tiled are mutually exclusive")
 
-    predictor = Predictor.from_npz(args.npz, preserve_aspect=args.letterbox,
-                                   device=args.device)
+    predictor = Predictor.from_checkpoint(args.artifact,
+                                          preserve_aspect=args.letterbox,
+                                          device=args.device)
     results = []
     if args.tiled:
         from ssd_tpu_torch.tiling import TiledPredictor

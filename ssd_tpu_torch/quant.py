@@ -14,7 +14,8 @@ max-accumulates ``max|x| / 127`` (or the ``percentile`` of ``|x|``, per
 batch) into its scale. The backbone's convs record theirs too, so a
 calibrated model serves its backbone on calibrated scales as well.
 
-    python -m ssd_tpu_torch.quant --npz model.npz --output model_int8.npz \\
+    python -m ssd_tpu_torch.quant --export DIR_OR_FILE.npz \\
+        --output DIR \\
         --data "data/val-*.tfrecords" | --images a.jpg b.jpg ... \\
         [--batch-size 8] [--batches 8] [--percentile 99.9] \\
         [--backbone-only] [--device cpu]
@@ -36,7 +37,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ssd_tpu_torch.convert import load_npz_artifact, save_npz_artifact
+from ssd_tpu_torch.export import (add_artifact_args,
+                                  load_artifact_label_map,
+                                  load_inference_artifact,
+                                  save_inference_artifact)
 from ssd_tpu_torch.models.detector import Detector, check_supported
 from ssd_tpu_torch.models.layers import calibrating
 
@@ -73,24 +77,25 @@ def int8_config(cfg, int8_neck: bool = True):
     return qcfg
 
 
-def quantize_artifact(npz_in: str, npz_out: str, batches,
-                      int8_neck: bool = True,
+def quantize_artifact(src: str, dst: str, batches, int8_neck: bool = True,
                       percentile: float | None = None, device=None) -> dict:
-    """bf16/f32 ``.npz`` artifact -> int8 artifact; returns its state.
+    """bf16/f32 inference artifact (a directory or a ``.npz``) -> int8
+    artifact directory ``dst``, with the source's label map; returns its
+    state.
 
     With ``int8_neck`` the model is calibrated on ``batches`` (on
     ``device``, ``None``: the card). Without, it is a pure config flip: the
     backbone's static scales need no state, and the artifact carries none.
     """
-    cfg, state = load_npz_artifact(npz_in)
+    cfg, state = load_inference_artifact(src)
     qcfg = int8_config(cfg, int8_neck)
     seen = 0
     if int8_neck:
         det = Detector(qcfg, state, device=device)
         seen = calibrate(det, batches, percentile)
         state = {k: v.cpu() for k, v in det.model.state_dict().items()}
-    save_npz_artifact(npz_out, qcfg, state)
-    print(f"calibrated on {seen} images -> {npz_out}")
+    save_inference_artifact(dst, qcfg, state, load_artifact_label_map(src))
+    print(f"calibrated on {seen} images -> {dst}")
     return state
 
 
@@ -128,10 +133,9 @@ def batches_from_images(paths: list[str], image_hw, batch_size: int,
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--npz", required=True,
-                   help="source .npz artifact (bf16/f32)")
+    add_artifact_args(p)
     p.add_argument("--output", required=True,
-                   help="destination .npz for the int8 artifact")
+                   help="destination directory of the int8 artifact")
     p.add_argument("--data", default="",
                    help="tfrecord glob of calibration images")
     p.add_argument("--images", nargs="*", default=[],
@@ -151,14 +155,15 @@ def main(argv=None) -> None:
     if not args.data and not args.images and not args.backbone_only:
         p.error("calibration needs --data or --images "
                 "(or pass --backbone-only)")
-    cfg, _ = load_npz_artifact(args.npz)
+    src = args.artifact
+    cfg, _ = load_inference_artifact(src)
     if args.data:
         batches = batches_from_tfrecords(args.data, cfg, args.batch_size,
                                          args.batches)
     else:
         batches = batches_from_images(args.images, cfg.image_hw(),
                                       args.batch_size, args.batches)
-    quantize_artifact(args.npz, args.output, batches,
+    quantize_artifact(src, args.output, batches,
                       int8_neck=not args.backbone_only,
                       percentile=args.percentile, device=args.device)
 

@@ -26,7 +26,7 @@ Endpoints:
   GET  /healthz                       liveness and model identity
   GET  /v1/stats                      counters, batch sizes, latencies
 
-    python -m ssd_tpu_torch.serve --npz model.npz --port 8000 \\
+    python -m ssd_tpu_torch.serve --export DIR_OR_FILE.npz --port 8000 \\
         [--max-batch 32] [--max-wait-ms 5] [--scan-depth 1] \\
         [--warmup-batches all] [--score-threshold 0.3] [--letterbox] \\
         [--device cpu] [--tta]
@@ -44,6 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ssd_tpu_torch.data import native
+from ssd_tpu_torch.export import add_artifact_args
 from ssd_tpu_torch.predictor import Predictor, detection_rows
 
 
@@ -416,7 +417,7 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--npz", required=True, help="inference artifact (.npz)")
+    add_artifact_args(p)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=32)
@@ -435,8 +436,9 @@ def main(argv=None) -> None:
                         "device work a request; scan_depth drops to 1)")
     args = p.parse_args(argv)
 
-    predictor = Predictor.from_npz(args.npz, preserve_aspect=args.letterbox,
-                                   device=args.device)
+    predictor = Predictor.from_checkpoint(args.artifact,
+                                          preserve_aspect=args.letterbox,
+                                          device=args.device)
     if args.tta:
         from ssd_tpu_torch.tta import TTAPredictor
         predictor = TTAPredictor(predictor)

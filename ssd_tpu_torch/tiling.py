@@ -15,7 +15,7 @@ the object another tile or the full pass sees whole, with an IoU with it
 well under any threshold but an IoS near 1. Detections touching an
 interior tile edge are down-weighted by ``edge_penalty`` first.
 
-    python -m ssd_tpu_torch.predictor --npz model.npz --images big.jpg \\
+    python -m ssd_tpu_torch.predictor --export DIR --images big.jpg \\
         --tiled [--tile-overlap 0.25] [--edge-penalty 0.5]
 """
 

@@ -13,7 +13,8 @@ encoded here by PIL where it is installed, at ``--image-size``; read from
 code) where it is not. Nothing is downloaded.
 
     python -m ssd_tpu_torch.tools.bench_http \\
-        --config configs/coco_mobilenet_640_flagship.json [--npz model.npz] \\
+        --config configs/coco_mobilenet_640_flagship.json \\
+        | --export DIR_OR_FILE.npz \\
         [--clients 64] [--requests 20] [--max-batch 32] [--max-wait-ms 5] \\
         [--scan-depth 1] [--image-size 640] [--device cpu]
 """
@@ -31,6 +32,7 @@ import urllib.request
 import numpy as np
 
 from ssd_tpu_torch.data import native, synthetic
+from ssd_tpu_torch.export import add_artifact_args
 
 ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "assets", "serve_golden_v1.npz")
@@ -133,7 +135,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--config", default=None)
-    p.add_argument("--npz", default=None, help="inference artifact (.npz)")
+    add_artifact_args(p, required=False)
     p.add_argument("--clients", type=int, default=64)
     p.add_argument("--requests", type=int, default=20,
                    help="requests per client")
@@ -145,15 +147,16 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
     args = p.parse_args(argv)
-    if (args.config is None) == (args.npz is None):
-        p.error("pass exactly one of --config and --npz")
+    artifact = args.artifact
+    if (args.config is None) == (artifact is None):
+        p.error("pass exactly one of --config and --export")
 
     from ssd_tpu_torch.config import Config
     from ssd_tpu_torch.predictor import Predictor
     from ssd_tpu_torch.serve import DetectionServer
 
-    if args.npz:
-        predictor = Predictor.from_npz(args.npz, device=args.device)
+    if artifact:
+        predictor = Predictor.from_checkpoint(artifact, device=args.device)
     else:  # weights seeded from 0
         predictor = Predictor(Config.load(args.config), None,
                               device=args.device)
@@ -170,7 +173,7 @@ def main(argv=None) -> dict:
         result = run(server, bodies, args.clients, args.requests)
     finally:
         server.stop()
-    result = {"config": args.config or args.npz, "bodies": source,
+    result = {"config": args.config or artifact, "bodies": source,
               "clients": args.clients, "max_batch": args.max_batch,
               "max_wait_ms": args.max_wait_ms,
               "scan_depth": args.scan_depth,

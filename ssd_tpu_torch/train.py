@@ -15,21 +15,23 @@ staging buffers (``DeviceFeed``), so a step never waits for the card; the
 metrics are read back every ``log_every`` steps, and that is the only wait.
 
 It initialises (weights seeded from ``train.seed``; ``train.init_from``
-warm-starts them from a ``.npz`` artifact) or resumes from the newest
-checkpoint in ``workdir/checkpoints``, with the batches resumed where they
-stood. Each batch resolution gets its own ``Detector`` (anchors) over the
-one shared model. ``train.distill_from`` loads a teacher artifact (same
-classes and anchors), checked before any data or checkpoint is touched.
-Every ``eval_every`` steps the served weights (the EMA when tracked) are
-loaded into a separate evaluation ``Detector`` and scored on
-``data.val_file_pattern`` (COCO mAP); an improvement writes
-``workdir/best.npz``. SIGTERM sets a flag: the loop writes a final
-checkpoint and stops. An exception writes a checkpoint and propagates.
-Metrics go to stdout and ``workdir/metrics.jsonl``; a run that ends
-normally writes ``workdir/export.npz`` (with the label map found beside the
-training shards) for ``Predictor.from_npz``. ``profile_steps`` records a
-``torch.profiler`` trace of that many steps from this run's 10th into
-``workdir/profile``, with a summary of its waits for the card.
+warm-starts them from an inference artifact, a directory or a ``.npz``)
+or resumes from the newest checkpoint in ``workdir/checkpoints``, with
+the batches resumed where they stood. Each batch resolution gets its own
+``Detector`` (anchors) over the one shared model. ``train.distill_from``
+loads a teacher artifact (same classes and anchors), checked before any
+data or checkpoint is touched. Every ``eval_every`` steps the served
+weights (the EMA when tracked) are loaded into a separate evaluation
+``Detector`` and scored on ``data.val_file_pattern`` (COCO mAP); an
+improvement writes the artifact directory ``workdir/best``. SIGTERM sets
+a flag: the loop writes a final checkpoint and stops. An exception writes
+a checkpoint and propagates. Metrics go to stdout and
+``workdir/metrics.jsonl``; a run that ends normally writes the artifact
+directory ``workdir/export`` (with the label map found beside the training
+shards) for ``Predictor.from_checkpoint``; ``python -m
+ssd_tpu_torch.export`` writes one from any checkpoint. ``profile_steps``
+records a ``torch.profiler`` trace of that many steps from this run's
+10th into ``workdir/profile``, with a summary of its waits for the card.
 """
 
 from __future__ import annotations
@@ -47,13 +49,13 @@ import torch
 from torch.profiler import record_function
 
 from ssd_tpu_torch.config import Config
-from ssd_tpu_torch.convert import load_npz_artifact, save_npz_artifact
 from ssd_tpu_torch.data.pipeline import Pipeline
 from ssd_tpu_torch.device import PinnedStaging
 from ssd_tpu_torch.eval.coco_map import DetectionEvaluator
+from ssd_tpu_torch.export import (load_inference_artifact,
+                                  save_inference_artifact)
 from ssd_tpu_torch.models.detector import Detector
 from ssd_tpu_torch.ops import matching_cuda, nms_cuda
-from ssd_tpu_torch.predictor import LABEL_MAP_KEY, label_map_array
 from ssd_tpu_torch.train_step import (Optimizer, TrainState,
                                       create_train_state,
                                       inference_variables, make_lr_schedule,
@@ -62,8 +64,8 @@ from ssd_tpu_torch.utils import profiling
 from ssd_tpu_torch.utils.checkpoint import TrainCheckpointer
 from ssd_tpu_torch.utils.logging import MetricLogger
 
-EXPORT_NAME = "export.npz"
-BEST_NAME = "best.npz"
+EXPORT_NAME = "export"  # the artifact directories in the workdir
+BEST_NAME = "best"
 PROFILE_DIR = "profile"
 PROFILE_START = 10  # the profiled window starts at this run's 10th step
 BATCH_KEYS = ("images", "boxes", "labels", "num_boxes")
@@ -116,11 +118,12 @@ def evaluate(detector: Detector, cfg: Config) -> dict:
 
 
 def warm_start(state: TrainState, artifact_path: str) -> TrainState:
-    """Seeds a fresh state from a ``.npz`` artifact: every parameter and BN
+    """Seeds a fresh state from an inference artifact (a directory or a
+    ``.npz``): every parameter and BN
     statistic whose name, shape and dtype match is copied; the rest (say a
     class head of another class count) keep their initialization. The EMA
     is re-seeded from the warm-started parameters."""
-    _, donor = load_npz_artifact(artifact_path)
+    _, donor = load_inference_artifact(artifact_path)
 
     def merge(fresh: dict, kind: str) -> None:
         copied = 0
@@ -151,7 +154,7 @@ def load_teacher(cfg: Config, device) -> tuple[Config, Detector] | None:
     one), checked against the student: the same class count and anchors."""
     if not cfg.train.distill_from:
         return None
-    t_cfg, t_state = load_npz_artifact(cfg.train.distill_from)
+    t_cfg, t_state = load_inference_artifact(cfg.train.distill_from)
     if t_cfg.num_classes != cfg.num_classes:
         raise ValueError(f"distill teacher has {t_cfg.num_classes} classes, "
                          f"student {cfg.num_classes}")
@@ -233,8 +236,6 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
     eval_det = None
     best_map = -1.0
     label_map = find_label_map(cfg.data.train_file_pattern)
-    extra = ({LABEL_MAP_KEY: label_map_array(label_map)}
-             if label_map else {})
 
     preempted = {"flag": False}
 
@@ -299,9 +300,9 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
                                                 "AP50": result["AP50"]})
                     if result["mAP"] > best_map:
                         best_map = result["mAP"]
-                        save_npz_artifact(os.path.join(workdir, BEST_NAME),
-                                          cfg, inference_variables(state),
-                                          **extra)
+                        save_inference_artifact(
+                            os.path.join(workdir, BEST_NAME), cfg,
+                            inference_variables(state), label_map)
                 except FileNotFoundError:
                     pass  # no val set configured
     except Exception:
@@ -319,8 +320,8 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
 
     ckpt.save(state, batches.state())
     if not preempted["flag"]:
-        save_npz_artifact(os.path.join(workdir, EXPORT_NAME), cfg,
-                          inference_variables(state), **extra)
+        save_inference_artifact(os.path.join(workdir, EXPORT_NAME), cfg,
+                                inference_variables(state), label_map)
     if not metrics:
         return {}
     return dict(zip(metrics, torch.stack(

@@ -11,7 +11,7 @@ the serving daemon pipelines through it (``python -m ssd_tpu_torch.serve
 --tta``). ``EnsemblePredictor`` fuses several predictors' detections of
 the same batch the same way.
 
-    python -m ssd_tpu_torch.predictor --npz model.npz --images a.jpg --tta
+    python -m ssd_tpu_torch.predictor --export DIR --images a.jpg --tta
 """
 
 from __future__ import annotations
@@ -135,8 +135,10 @@ class EnsemblePredictor:
 class TTAPredictor:
     """``predict(image | images | [images])`` with flip TTA.
 
-    ``predictor``: a ``Predictor``. ``merge``: ``"wbf"`` (fuse clusters
-    into weighted averages) or ``"nms"`` (keep the best view's box).
+    ``predictor``: a ``Predictor``, or any object with ``predict`` (an
+    ``EnsemblePredictor``), whose doubled batch then runs at dispatch.
+    ``merge``: ``"wbf"`` (fuse clusters into weighted averages) or
+    ``"nms"`` (keep the best view's box).
     ``iou_threshold``, ``max_boxes``: the merge's (default the config's
     NMS ones). The daemon takes it where it takes a ``Predictor``: it
     dispatches the doubled batch without waiting and fuses in
@@ -184,12 +186,17 @@ class TTAPredictor:
         enqueued without waiting."""
         image_list, single = _image_list(images)
         views = image_list + [im[:, ::-1] for im in image_list]
-        return {"inner": self.predictor.predict_dispatch(views),
-                "n": len(image_list), "single": single}
+        if hasattr(self.predictor, "predict_dispatch"):
+            inner = self.predictor.predict_dispatch(views)
+        else:  # a member without the split (an ensemble): block here
+            inner = {"done": self.predictor.predict(views)}
+        return {"inner": inner, "n": len(image_list), "single": single}
 
     def predict_collect(self, handle: dict) -> dict:
         """Readback of both views, then their fusion on the device."""
-        out = self.predictor.predict_collect(handle["inner"])
+        inner = handle["inner"]
+        out = (inner["done"] if "done" in inner
+               else self.predictor.predict_collect(inner))
         n = handle["n"]
         base = {k: np.asarray(out[k])[:n] for k in DET_KEYS}
         flip = {k: np.asarray(out[k])[n:] for k in DET_KEYS}

@@ -64,6 +64,8 @@ from ssd_tpu_torch.convert import (convert_variables,  # noqa: E402
 from ssd_tpu_torch.data import synthetic  # noqa: E402
 from ssd_tpu_torch.eval import sanity  # noqa: E402
 from ssd_tpu_torch.eval.coco_map import DetectionEvaluator  # noqa: E402
+from ssd_tpu_torch.export import \
+    load_inference_artifact as load_artifact  # noqa: E402
 from ssd_tpu_torch.models.detector import Detector  # noqa: E402
 from ssd_tpu_torch.models.layers import (QuantConv, int_mm,  # noqa: E402
                                          percentile)
@@ -502,20 +504,20 @@ def test_quantize_cli(tmp_path):
     for i, img in enumerate(next(synthetic.sanity_batches(3, 5, batch=3))[0]):
         paths.append(str(tmp_path / f"{i}.png"))
         Image.fromarray(img).save(paths[-1])
-    out = str(tmp_path / "int8.npz")
+    out = str(tmp_path / "int8")
     quant.main(["--npz", sanity.SANITY_NPZ, "--output", out, "--images",
                 *paths, "--batch-size", "2", "--device", "cpu"])
-    cfg, state = load_npz_artifact(out)
+    cfg, state = load_artifact(out)
     assert cfg.model.compute_dtype == "int8" and cfg.model.int8_neck
     assert sum("act_scale_" in k for k in state) == 39
-    bb = str(tmp_path / "bb.npz")
+    bb = str(tmp_path / "bb")
     quant.main(["--npz", sanity.SANITY_NPZ, "--output", bb,
                 "--backbone-only", "--device", "cpu"])
-    cfg_bb, state_bb = load_npz_artifact(bb)
+    cfg_bb, state_bb = load_artifact(bb)
     assert not cfg_bb.model.int8_neck
     assert not any("act_scale_" in k for k in state_bb)
     for path in (out, bb):
-        r = Predictor.from_npz(path, device="cpu").predict(
+        r = Predictor.from_checkpoint(path, device="cpu").predict(
             np.zeros((128, 128, 3), np.uint8))
         assert r["boxes"].shape == (cfg.nms.max_boxes, 4)
 

@@ -36,7 +36,8 @@ for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
              "models.mobilenet_v2", "models.efficientnet",
              "models.shufflenet", "models.resnet", "ops.fused_head",
              "tools.train_memory", "tiling", "tta", "ops.wbf",
-             "eval.__main__"):
+             "eval.__main__", "streaming", "export",
+             "tools.bench_streaming"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
@@ -49,7 +50,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert int(out.stdout.strip()) >= 30  # every module of the package
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from ssd_tpu_torch.config import Config
@@ -72,6 +73,17 @@ def test_entry_points_default_to_cuda():
         bench_fused_early.reference_backbone()
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_fused_early.main(["--batch", "1", "--size", "16"])
+    from ssd_tpu_torch import export
+    from ssd_tpu_torch.streaming import StreamingDetector
+    from ssd_tpu_torch.tools import bench_streaming
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingDetector(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_streaming.main(["--config", os.path.join(
+            ROOT, "configs", "streaming_1024.json"), "--frames", "1"])
+    cfg.save(str(tmp_path / "config.json"))
+    with pytest.raises(RuntimeError, match="CUDA"):  # before any restore
+        export.main(["--workdir", str(tmp_path)])
 
 
 def test_cpu_tensors_never_launch_the_kernel():

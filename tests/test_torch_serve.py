@@ -61,10 +61,11 @@ from ssd_tpu.predictor import Predictor as JaxPredictor  # noqa: E402
 from ssd_tpu_torch import serve  # noqa: E402
 from ssd_tpu_torch.config import Config  # noqa: E402
 from ssd_tpu_torch.convert import (convert_variables,  # noqa: E402
-                                   load_npz_artifact, save_npz_artifact)
+                                   label_map_array, load_npz_artifact,
+                                   save_npz_artifact)
 from ssd_tpu_torch.data import native, synthetic  # noqa: E402
 from ssd_tpu_torch.predictor import (Predictor,  # noqa: E402
-                                     detections_arrays, label_map_array,
+                                     detections_arrays,
                                      main as predictor_main)
 from ssd_tpu_torch.tools import bench_http, bench_serve  # noqa: E402
 from tests.test_torch_model import seeded_variables  # noqa: E402

@@ -33,10 +33,11 @@ from ssd_tpu.ops import nms as jax_nms
 from ssd_tpu.predictor import Predictor as JaxPredictor
 from ssd_tpu_torch import tiling
 from ssd_tpu_torch.config import Config
-from ssd_tpu_torch.convert import convert_variables, save_npz_artifact
+from ssd_tpu_torch.convert import (convert_variables, label_map_array,
+                                   save_npz_artifact)
 from ssd_tpu_torch.data import synthetic
 from ssd_tpu_torch.ops import box_utils, nms
-from ssd_tpu_torch.predictor import Predictor, label_map_array
+from ssd_tpu_torch.predictor import Predictor
 from ssd_tpu_torch.predictor import main as predictor_main
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_slice import assert_set_match

@@ -68,6 +68,7 @@ from ssd_tpu_torch.models.layers import BatchNorm  # noqa: E402
 from ssd_tpu_torch.ops import losses  # noqa: E402
 from ssd_tpu_torch.ops.targets import Targets  # noqa: E402
 from ssd_tpu_torch.predictor import Predictor  # noqa: E402
+from ssd_tpu_torch.export import load_inference_artifact  # noqa: E402
 from ssd_tpu_torch.train import EXPORT_NAME, train  # noqa: E402
 from ssd_tpu_torch.train_step import (Optimizer,  # noqa: E402
                                       create_train_state, make_lr_schedule,
@@ -669,11 +670,12 @@ def test_resume_is_exact(tmp_path):
                                b["opt_state"][k][name]), (k, name)
     assert a["opt_state"]["count"] == b["opt_state"]["count"] == 4
     # the export serves, from the EMA weights
-    pred = Predictor.from_npz(os.path.join(full, EXPORT_NAME), device="cpu")
+    pred = Predictor.from_checkpoint(os.path.join(full, EXPORT_NAME),
+                                     device="cpu")
     out = pred.predict(small_batch(0)["images"])
     assert out["boxes"].shape == (4, cfg.nms.max_boxes, 4)
     assert np.isfinite(out["scores"]).all()
-    _, state = load_npz_artifact(os.path.join(full, EXPORT_NAME))
+    _, state = load_inference_artifact(os.path.join(full, EXPORT_NAME))
     for k, v in a["ema_params"].items():
         assert torch.equal(state[k], v), k
 

@@ -13,7 +13,7 @@ batch 4; the trained 128 px sanity artifact for the mAP). Held here:
   tests/test_torch_train_loop.py regen`` rewrites it);
 * the loop on a PIL-written tfrecord dataset: 2 + 2 resumed steps equal 4
   bit for bit, evaluation (on the EMA) leaves training bit-identical,
-  ``best.npz`` serves, a teacher run logs ``distill_loss``, a bad teacher
+  ``best/`` serves, a teacher run logs ``distill_loss``, a bad teacher
   fails before any checkpoint, and the CLI (``--device cpu``) resumes.
 """
 
@@ -47,6 +47,7 @@ from ssd_tpu_torch.convert import (convert_params, convert_variables,
 from ssd_tpu_torch.data import synthetic
 from ssd_tpu_torch.data.tfrecord import RecordWriter, encode_detection_example
 from ssd_tpu_torch.eval import sanity
+from ssd_tpu_torch.export import load_inference_artifact as load_artifact
 from ssd_tpu_torch.models.detector import Detector
 from ssd_tpu_torch.predictor import Predictor
 from ssd_tpu_torch.train import (BEST_NAME, EXPORT_NAME, evaluate, main,
@@ -224,7 +225,7 @@ def test_resume_through_the_pipeline_is_exact(datasets, tmp_path):
     """train() to 4 == train() to 2, then resumed to 4, on the tfrecord
     pipeline at two scales with an evaluation every 2 steps: every weight,
     statistic, moment and EMA weight bit for bit, and the pipeline's
-    position. ``best.npz`` holds the EMA weights of its step and serves."""
+    position. ``best/`` holds the EMA weights of its step and serves."""
     cfg = loop_cfg(datasets)
     full, part = str(tmp_path / "full"), str(tmp_path / "part")
     train(cfg, full, max_steps=4, device="cpu")
@@ -240,14 +241,15 @@ def test_resume_through_the_pipeline_is_exact(datasets, tmp_path):
     assert [r["step"] for r in evals] == [2, 4]
     assert {tuple(r["image_hw"]) for r in records if "image_hw" in r} == {
         (64, 64), (96, 96)}
-    best_cfg, best = load_npz_artifact(os.path.join(full, BEST_NAME))
+    best_cfg, best = load_artifact(os.path.join(full, BEST_NAME))
     assert best_cfg.to_json() == cfg.to_json()
     # the first evaluation writes it; a later one only if mAP improves
     best_step = 4 if evals[1]["mAP"] > evals[0]["mAP"] else 2
     ema = (a if best_step == 4 else _ckpt(part, 2))["ema_params"]
     for k, v in ema.items():
         assert torch.equal(best[k], v), k
-    pred = Predictor.from_npz(os.path.join(full, BEST_NAME), device="cpu")
+    pred = Predictor.from_checkpoint(os.path.join(full, BEST_NAME),
+                                     device="cpu")
     assert pred.label_map == {i: f"class_{i}" for i in range(8)}
     out = pred.predict(small_batch(0)["images"])
     assert np.isfinite(out["scores"]).all()
@@ -263,7 +265,7 @@ def test_evaluation_leaves_training_bit_identical(datasets, tmp_path):
     train(loop_cfg(datasets, eval_every=0), without, max_steps=3,
           device="cpu")
     _assert_same_state(_ckpt(with_eval, 3), _ckpt(without, 3))
-    ema_export = load_npz_artifact(os.path.join(without, EXPORT_NAME))[1]
+    ema_export = load_artifact(os.path.join(without, EXPORT_NAME))[1]
     for k, v in _ckpt(without, 3)["ema_params"].items():
         assert torch.equal(ema_export[k], v), k
 
@@ -292,7 +294,7 @@ def test_teacher_run_and_warm_start(datasets, tmp_path, capsys):
         assert all(np.isfinite(json.loads(line)["distill_loss"])
                    for line in f)
     other = str(tmp_path / "other.npz")
-    cfg5, state5 = load_npz_artifact(export)
+    cfg5, state5 = load_artifact(export)
     cfg5 = dataclasses.replace(cfg5, num_classes=5)
     det5 = Detector(cfg5, device="cpu")
     save_npz_artifact(other, cfg5, det5.model.state_dict())
@@ -347,12 +349,12 @@ def test_quant_calibrates_from_tfrecords(tmp_path):
     assert len(got) == len(want) == 2
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
-    out, direct = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    out, direct = str(tmp_path / "a"), str(tmp_path / "b")
     quant.main(["--npz", sanity.SANITY_NPZ, "--output", out, "--data",
                 pattern, "--batch-size", "8", "--batches", "2", "--device",
                 "cpu"])
     quant.quantize_artifact(sanity.SANITY_NPZ, direct, got, device="cpu")
-    a, b = load_npz_artifact(out)[1], load_npz_artifact(direct)[1]
+    a, b = load_artifact(out)[1], load_artifact(direct)[1]
     assert set(a) == set(b) and any(k.rsplit(".", 1)[-1].startswith(
         "act_scale_") for k in a)
     for k in a:

@@ -6,10 +6,10 @@ eval CLI against the JAX package on the CPU.
   crowded one) with ``num_views`` 1, 2 and 3, and batched equal to per
   image. XLA:CPU contracts the running sum ``wsum + score * box`` into a
   fused multiply-add, which the port rounds once as well;
-* ``TTAPredictor`` (WBF and NMS merges) and ``EnsemblePredictor`` on a
-  64 px f32 model: the port's fusion of JAX's own view detections
-  bit-equal to JAX's predictors, and the port end to end equal to them
-  under the golden set rule;
+* ``TTAPredictor`` (WBF and NMS merges), ``EnsemblePredictor`` and TTA
+  over an ensemble on a 64 px f32 model: the port's fusion of JAX's own
+  view detections bit-equal to JAX's predictors, and the port end to end
+  equal to them under the golden set rule;
 * the daemon with ``--tta`` equal to the direct call (``scan_depth`` 1);
 * ``python -m ssd_tpu_torch.eval`` on the sanity scenes' shard
   (``assets/eval_golden_v1.npz``) in f32: without ``--tta`` JAX's stored
@@ -229,6 +229,25 @@ def test_ensemble_matches_jax(predictors):
     end = tta.EnsemblePredictor([p1, p2], weights=[1.0, 0.7]).predict(images)
     assert end["num_boxes"].min() > 0
     assert_set_match(end, _as_batch(want))
+
+
+def test_tta_over_ensemble_matches_jax(predictors):
+    """TTA over a member without the dispatch/collect split (an ensemble):
+    the doubled batch runs at dispatch, as JAX's ``TTAPredictor`` does."""
+    (j1, p1), (j2, p2) = predictors
+    images = np.asarray(
+        [np.asarray(Image.fromarray(im).resize((64, 64), Image.BILINEAR))
+         for im in scenes(2, 5)])
+    want = jax_tta.TTAPredictor(
+        jax_tta.EnsemblePredictor([j1, j2])).predict(images)
+    member = tta.EnsemblePredictor([p1, p2])
+    assert not hasattr(member, "predict_dispatch")
+    got = tta.TTAPredictor(member).predict(images)
+    assert got["boxes"].shape == (2, 8, 4) and got["num_boxes"].min() > 0
+    assert_set_match(got, _as_batch(want))
+    np.testing.assert_array_equal(got["names"][got["labels"] >= 0],
+                                  [LABELS[x] for x in
+                                   got["labels"][got["labels"] >= 0]])
 
 
 def _jpeg(image: np.ndarray) -> bytes:
