@@ -154,7 +154,24 @@ any failure raises:
    apart in examples whose colour jitter ran); the pipeline timed alone at
    each scale with 8 workers; per-scale step p50, the wait for data, img/s
    and peak memory;
-10. the kernels line, then the card's ``nvidia-smi`` line, then the
+10. scaleout: the flagship over a process group on the one card: (a) the
+    data-parallel step over NCCL at world size 1 (global batch norm,
+    normalizers and gradient sum: identities there), one warm-up and 4
+    steps held bit-equal to the plain step from the same seeded state on
+    the same batches (params, BN statistics, EMA, metrics; cuDNN's
+    deterministic algorithms in both), K2 once a step, no wait for the
+    card inside a profiled step; (b) the same step under FSDP
+    (``param_sharding: "fsdp"``) within rtol and atol 1e-5 of (a), its
+    bit-equal share; the three timed in turns (p50, peak memory); (c)
+    ``train.evaluate`` with the mesh and the stat gather over the eval
+    golden, JAX's numbers to 1e-6, K1 once a batch; (d)
+    ``Predictor(mesh=True)`` at b32 bit-equal to the plain predictor, K1
+    once a device a predict; (e) two ranks on the card over gloo
+    (``torchrun`` of ``tools/bench_train.py``, the f32 flagship at b8):
+    the ranks' states bit-identical and within the f32 bars of the
+    one-process step on the 8 rows. ``python3 chip_smoke.py --phase
+    scaleout`` runs this phase alone, after the build;
+11. the kernels line, then the card's ``nvidia-smi`` line, then the
     result.
 
 Times are CUDA-event times after warm-up, or host times around work that
@@ -167,10 +184,12 @@ time of back-to-back eager calls of the wrapper, its host work included
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -211,13 +230,15 @@ from ssd_tpu_torch.quant import calibrate, int8_config
 from ssd_tpu_torch.serve import DetectionServer
 from ssd_tpu_torch.streaming import PUSH_SPAN, StreamingDetector
 from ssd_tpu_torch.tiling import TiledPredictor
+from ssd_tpu_torch.parallel import mesh as mesh_lib
 from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
-                                 bench_streaming, kernel_cases, train_memory)
+                                 bench_streaming, kernel_cases,
+                                 scaleout_check, train_memory)
 from ssd_tpu_torch.tta import TTAPredictor, fuse_flip_batch
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
 from ssd_tpu_torch.train import (BEST_NAME, EXPORT_NAME, PROFILE_START,
-                                 evaluate, train)
+                                 DeviceFeed, evaluate, train)
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
                                       make_train_step)
 from ssd_tpu_torch.utils import profiling
@@ -2812,6 +2833,278 @@ def phase_train_memory(power_line: str) -> int:
     return matching_cuda.launches
 
 
+# ------------------------------------------------------------------ scale-out
+
+SCALEOUT_STEPS = 4  # timed data-parallel steps, after one warm-up
+SCALEOUT_FSDP_TOL = 1e-5  # (b) against (a), rtol and atol
+SCALEOUT_EVAL_BAR = 1e-6  # (c) against JAX's stored numbers
+SCALEOUT_PREDICTS = 3
+GLOO_BATCH = 8  # (e): the f32 flagship, 4 rows a rank
+GLOO_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms (and PyTorch's where it has them)
+    for the block: two runs of one step then give the same bits, so that
+    the data-parallel step can be held bit-equal to the plain one."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev[:2]
+        torch.use_deterministic_algorithms(prev[2])
+
+
+def _train_setup(cfg: Config, mesh=None, fsdp: bool = False):
+    """A seeded flagship, its state and its step: plain (``mesh=None``),
+    data-parallel over ``mesh``, or FSDP over it."""
+    det = Detector(cfg, device=DEVICE)
+    if fsdp:
+        mesh_lib.fsdp_sharded(mesh, det.model)
+    opt = Optimizer(cfg)
+    state = create_train_state(det, opt, cfg.train.ema_decay)
+    step = make_train_step(det, opt, cfg.train.ema_decay,
+                           cfg.train.grad_accum_steps, mesh=mesh)
+    return det, state, step
+
+
+def _run_steps(run: list, batches: list, feed, times: list | None = None
+               ) -> list[dict]:
+    """Steps ``run = [det, state, step]`` over ``batches`` (uploaded
+    first), each ending in the readback of its metrics; host-clock ms of
+    each appended to ``times``."""
+    out = []
+    for batch in batches:
+        dev = feed(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run[1], m = run[2](run[1], dev)
+        values = torch.stack([v.float() for v in m.values()]).tolist()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append(dict(zip(m, values)))
+    return out
+
+
+def _whole_state(det: Detector, state) -> dict:
+    """The model's state dict and the EMA, whole tensors on the host."""
+    out = {f"model/{k}": mesh_lib.full_tensor(v.detach()).to("cpu",
+                                                             copy=True)
+           for k, v in det.model.state_dict().items()}
+    out.update({f"ema/{k}": mesh_lib.full_tensor(v.detach()).to("cpu",
+                                                               copy=True)
+                for k, v in (state.ema_params or {}).items()})
+    return out
+
+
+def _scaleout_train(cfg: Config, mesh, feed) -> dict:
+    """(a) and (b): the data-parallel and the FSDP step at world size 1
+    held to the plain step, then all three timed in turns."""
+    h = cfg.image_hw()[0]
+    accum = max(cfg.train.grad_accum_steps, 1)
+    batches = [synthetic.crowded_batch(i, CROWDED_SEED, cfg.train.batch_size,
+                                       h, cfg.num_classes,
+                                       cfg.data.max_gt_boxes)
+               for i in range(1 + SCALEOUT_STEPS)]
+    plain, dp = list(_train_setup(cfg)), list(_train_setup(cfg, mesh))
+    peaks, launches = {}, {}
+    with _deterministic():
+        m_plain = _run_steps(plain, batches, feed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        matching_cuda.launches = 0
+        m_dp = _run_steps(dp, batches, feed)
+        launches["scaleout_dp"] = matching_cuda.launches
+        peaks["dp"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    want, got = _whole_state(plain[0], plain[1]), _whole_state(dp[0], dp[1])
+    unequal = sorted(k for k in want if not torch.equal(want[k], got[k]))
+    if m_plain != m_dp or unequal:
+        raise AssertionError(
+            f"(a) the world-1 data-parallel step is not the plain step: "
+            f"metrics {m_plain} vs {m_dp}, tensors {unequal[:8]} "
+            f"({scaleout_check.state_diff(got, want)})")
+    if launches["scaleout_dp"] != len(batches) * accum:
+        raise AssertionError(f"(a) {launches['scaleout_dp']} K2 launches "
+                             f"for {len(batches)} steps")
+
+    # one profiled step: no wait for the card inside it
+    dev = feed(batches[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("train.step"):
+            dp[1], m = dp[2](dp[1], dev)
+        torch.cuda.synchronize()
+    summary = profiling.summarize(prof, "train.")
+    stalls = profiling.syncs_under(summary, ("train.step",))
+    if stalls or not summary["device_ops"]:
+        raise AssertionError(f"(a) the data-parallel step waited for the "
+                             f"card: {stalls}")
+
+    fsdp = list(_train_setup(cfg, mesh, fsdp=True))
+    sharded = sum(mesh_lib.is_sharded(p) for p in fsdp[1].params.values())
+    with _deterministic():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        matching_cuda.launches = 0
+        m_fsdp = _run_steps(fsdp, batches, feed)
+        launches["scaleout_fsdp"] = matching_cuda.launches
+        peaks["fsdp"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    fsdp_diff = scaleout_check.state_diff(_whole_state(fsdp[0], fsdp[1]), got)
+    metric_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(m_fsdp, m_dp) for k in b)
+    close = all(torch.allclose(_whole_state(fsdp[0], fsdp[1])[k].double(),
+                               v.double(), rtol=SCALEOUT_FSDP_TOL,
+                               atol=SCALEOUT_FSDP_TOL)
+                for k, v in got.items() if v.is_floating_point())
+    if not close or metric_rel > SCALEOUT_FSDP_TOL:
+        raise AssertionError(f"(b) FSDP differs from (a): {fsdp_diff}, "
+                             f"metrics {metric_rel}")
+
+    # times, default cuDNN choices, in turns
+    times = {"plain": [], "dp": [], "fsdp": []}
+    for name in ("plain", "dp", "fsdp", "fsdp", "dp", "plain"):
+        run = {"plain": plain, "dp": dp, "fsdp": fsdp}[name]
+        _run_steps(run, batches[1:], feed, times[name])
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    return {"batch": cfg.train.batch_size, "image": list(cfg.image_hw()),
+            "steps_held": len(batches), "dp_bit_equal_to_plain": True,
+            "dp_profiled_step_syncs": len(stalls),
+            "fsdp_sharded_params": sharded,
+            "fsdp_vs_dp": fsdp_diff, "fsdp_metric_max_rel_diff": metric_rel,
+            "fsdp_tol": SCALEOUT_FSDP_TOL,
+            "step_ms": times, "p50_step_ms": p50,
+            "dp_over_plain": p50["dp"] / p50["plain"] - 1,
+            "fsdp_over_dp": p50["fsdp"] / p50["dp"] - 1,
+            "peak_mem_gib": peaks, "launches": launches}
+
+
+def _scaleout_eval(mesh) -> tuple[dict, int]:
+    """(c): ``train.evaluate`` with the mesh and the gather over the eval
+    golden's shard, against JAX's stored numbers."""
+    with np.load(EVAL_GOLDEN, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    want = {k.split("/", 1)[1]: float(v) for k, v in arrays.items()
+            if k.startswith("jax/")}
+    cfg = Config.from_json(str(arrays["config_json"]))
+    _, state = load_npz_artifact(ASSET)
+    with tempfile.TemporaryDirectory() as root:
+        shard = os.path.join(root, "val-00000-of-00001.tfrecords")
+        arrays["shard"].tofile(shard)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, val_file_pattern=shard))
+        n = len(pipeline.ShardIndex([shard]))
+        det = Detector(cfg, state, device=DEVICE)
+        nms_cuda.launches = 0
+        got = evaluate(det, cfg, 0, 1, mesh=mesh)
+        launches = nms_cuda.launches
+    diff = {k: got[k] - v for k, v in want.items()}
+    bad = [k for k, d in diff.items()
+           if not (abs(d) <= SCALEOUT_EVAL_BAR
+                   or (np.isnan(got[k]) and np.isnan(want[k])))]
+    batches = -(-n // cfg.train.batch_size)
+    if bad or launches != batches:
+        raise AssertionError(f"(c) the gathered evaluate differs from JAX's "
+                             f"({bad}) or launched K1 {launches} times for "
+                             f"{batches} batches")
+    return {"images": n, "batch": cfg.train.batch_size, "map": got["mAP"],
+            "jax_cpu_map": want["mAP"], "bar": SCALEOUT_EVAL_BAR,
+            "max_abs_diff": max((abs(d) for d in diff.values()
+                                 if not np.isnan(d)), default=0.0)}, launches
+
+
+def _scaleout_predict() -> tuple[dict, int]:
+    """(d): ``Predictor(mesh=True)`` on the flagship at b32, bit-equal to
+    the plain predictor, K1 once a device a predict."""
+    plain = _seeded_flagship()
+    meshed = Predictor(plain.cfg, plain.detector.model.state_dict(),
+                       mesh=True)
+    images = np.random.default_rng(12).integers(
+        0, 256, (32, *plain.cfg.image_hw(), 3), dtype=np.uint8)
+    plain.warmup(32)
+    meshed.warmup(32)
+    plain_ms, want = _host_ms(lambda: plain.predict(images), 5)
+    nms_cuda.launches = 0
+    mesh_ms, got = _host_ms(lambda: meshed.predict(images),
+                            SCALEOUT_PREDICTS)
+    launches = nms_cuda.launches
+    unequal = [k for k in want if not np.array_equal(want[k], got[k])]
+    devices = len(meshed.replicas)
+    if unequal or launches != SCALEOUT_PREDICTS * devices:
+        raise AssertionError(f"(d) the meshed predictor differs in "
+                             f"{unequal} or launched K1 {launches} times")
+    _check_output(got, 32, plain.cfg.nms.max_boxes)
+    return {"batch": 32, "devices": devices,
+            "bucket": meshed._bucket_for(32), "bit_equal": True,
+            "p50_ms": float(np.median(mesh_ms)),
+            "plain_p50_ms": float(np.median(plain_ms)),
+            "detections": int(got["num_boxes"].sum())}, launches
+
+
+def _scaleout_gloo() -> tuple[dict, int]:
+    """(e): two ranks on the one card over gloo (``tools/scaleout_check.py``:
+    ``torchrun`` of ``tools/bench_train.py``, DP), the f32 flagship at b8:
+    the ranks' states bit-identical, and within the f32 bars of the
+    one-process step on the 8 rows."""
+    row = scaleout_check.run(FLAGSHIP, 2, GLOO_BATCH, backend="gloo",
+                             overrides=["model.compute_dtype=float32"],
+                             timeout=GLOO_TIMEOUT_S)
+    launches = sum(row["match_launches"])
+    if not row["ok"] or row["match_launches"] != [1, 1]:
+        raise AssertionError(f"(e) two gloo ranks on the card: {row}")
+    return row, launches
+
+
+def phase_scaleout(power_line: str) -> tuple[dict, dict]:
+    """The scale-out paths on the one card: (a) the data-parallel step over
+    NCCL at world size 1, bit-equal to the plain step, K2 once a step, no
+    wait for the card inside a profiled step; (b) the same under FSDP
+    within 1e-5 of (a); (c) ``train.evaluate`` with the mesh and the
+    stat gather over the eval golden, JAX's numbers to 1e-6; (d)
+    ``Predictor(mesh=True)`` at b32 bit-equal to the plain predictor; (e)
+    two ranks on the card over gloo. Returns the K1 and K2 launches by
+    path."""
+    t0 = time.perf_counter()
+    cfg = Config.load(FLAGSHIP)
+    mesh_lib.initialize_distributed(
+        DEVICE, init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+        rank=0)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the card's process group is not NCCL")
+        mesh = mesh_lib.create_mesh()
+        feed = DeviceFeed(mesh.device)
+        train_rows = _scaleout_train(cfg, mesh, feed)
+        eval_row, k1_eval = _scaleout_eval(mesh)
+        predict_row, k1_predict = _scaleout_predict()
+    finally:
+        mesh_lib.shutdown_distributed()
+    gloo_row, k2_gloo = _scaleout_gloo()
+    k2 = dict(train_rows.pop("launches"), scaleout_gloo=k2_gloo)
+    k1 = {"scaleout_eval": k1_eval, "scaleout_predict": k1_predict}
+    emit({"phase": "scaleout", "card": power_line,
+          "config": os.path.relpath(FLAGSHIP, ROOT), "world_size": 1,
+          "backend": "nccl", "train": train_rows, "evaluate": eval_row,
+          "predict": predict_row, "gloo_two_ranks": gloo_row,
+          "launches": {**k1, **k2}, "wall_s": time.perf_counter() - t0,
+          "note": "unoptimised eager bring-up reading on " + power_line})
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2828,6 +3121,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "sources": _build.sources(),
           "ptxas": ptxas})
+    if sys.argv[1:] == ["--phase", "scaleout"]:  # that phase alone
+        phase_scaleout(power_line)
+        return 0
 
     phase_host_ingest(power_line)
     main_nms, nms_shapes = phase_nms()
@@ -2873,6 +3169,10 @@ def main() -> int:
     (match_launches_pipeline, nms_launches_train,
      nms_launches_eval_golden, nms_launches_new["eval_cli"]) = \
         phase_train_pipeline(power_line, flagship_p50)
+    nms_launches_scaleout, match_launches_scaleout = phase_scaleout(
+        power_line)
+    nms_launches_new.update(nms_launches_scaleout)
+    match_launches_new.update(match_launches_scaleout)
 
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",

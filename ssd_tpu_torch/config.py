@@ -18,10 +18,11 @@ Fields that select a TPU lowering have no effect in the port:
   (``ops/matching_cuda.py``: the hand-written kernel on CUDA tensors, its
   plain version on CPU tensors).
 
-The one training field the port does not act on yet is
-``TrainConfig.param_sharding`` (``ROADMAP.md`` M11, scale-out); the input
-pipeline's multi-host split (``data.pipeline.Pipeline``'s ``host_id`` and
-``num_hosts``) is kept but driven by no caller.
+``TrainConfig.param_sharding`` is ``"replicated"`` or ``"fsdp"`` (FSDP2
+over the ranks of a ``torchrun`` launch, ``parallel.mesh.fsdp_sharded``);
+any other value raises in ``train.train``, and one process has nothing to
+shard. Each rank reads its own rows through the input pipeline's host
+split (``data.pipeline.Pipeline``'s ``host_id`` and ``num_hosts``).
 """
 
 from __future__ import annotations

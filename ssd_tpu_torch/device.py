@@ -74,3 +74,24 @@ class PinnedStaging:
         out = buf.to(device, non_blocking=True)
         event.record()
         return out
+
+    @staticmethod
+    def upload_rows(buf: torch.Tensor, event: torch.cuda.Event,
+                    devices: list, bounds: list) -> list:
+        """Row blocks ``buf[lo:hi]`` (``bounds``), each on its device,
+        without waiting; the first device's stream then waits for the
+        others' copies and records ``event``, so that it marks the end of
+        every copy."""
+        outs, copied = [], []
+        for dev, (lo, hi) in zip(devices, bounds):
+            with torch.cuda.device(dev):
+                outs.append(buf[lo:hi].to(dev, non_blocking=True))
+                if dev != devices[0]:
+                    done = torch.cuda.Event()
+                    done.record()
+                    copied.append(done)
+        with torch.cuda.device(devices[0]):
+            for done in copied:
+                torch.cuda.current_stream().wait_event(done)
+            event.record()
+        return outs

@@ -19,8 +19,11 @@ implemented directly:
   * the standard 12-metric table: AP@[.5:.95] / AP50 / AP75,
     AP_small/medium/large, AR@{1,10,100}, AR_small/medium/large.
 
-Multi-host gathering (the JAX package's ``DetectionEvaluator.gather``) is
-not ported: ``merge`` folds one evaluator into another in one process.
+``merge`` folds one evaluator into another in one process; ``gather``
+folds every rank's into each rank's (the JAX package's multi-host gather,
+over ``torch.distributed``): each rank evaluates its own rows, and the
+small per-detection statistics, not images, go over the host group as CPU
+tensors, so every rank computes the same global metrics.
 """
 
 from __future__ import annotations
@@ -335,6 +338,98 @@ class DetectionEvaluator:
             self._tp[c].extend(other._tp[c])
             self._ig[c].extend(other._ig[c])
         self._num_gt += other._num_gt
+
+    def _pack(self) -> dict:
+        """Fixed-dtype flat arrays of the accumulated state (for the
+        all-gather)."""
+        t = len(self.iou_thresholds)
+        a = len(AREA_RANGES)
+        scores, ranks, tps, igs, cls = [], [], [], [], []
+        for c in range(self.num_classes):
+            for s, r, tp, ig in zip(self._scores[c], self._rank[c],
+                                    self._tp[c], self._ig[c]):
+                scores.append(np.asarray(s, np.float32))
+                ranks.append(np.asarray(r, np.int32))
+                tps.append(np.asarray(tp, bool))
+                igs.append(np.asarray(ig, bool))
+                cls.append(np.full(len(s), c, np.int32))
+        return {
+            "scores": (np.concatenate(scores) if scores
+                       else np.zeros(0, np.float32)),
+            "rank": (np.concatenate(ranks) if ranks
+                     else np.zeros(0, np.int32)),
+            "tp": (np.concatenate(tps, axis=0) if tps
+                   else np.zeros((0, a, t), bool)),
+            "ig": (np.concatenate(igs, axis=0) if igs
+                   else np.zeros((0, a, t), bool)),
+            "cls": (np.concatenate(cls) if cls else np.zeros(0, np.int32)),
+            "num_gt": self._num_gt.copy(),
+        }
+
+    def _load_packed(self, packed: dict) -> None:
+        """Merges one rank's packed state (the inverse of :meth:`_pack`);
+        rows of class -1 are padding. The per-image boundaries live on in
+        ``rank`` (it restarts at 0 at each image), all the metrics need."""
+        cls = np.asarray(packed["cls"])
+        scores = np.asarray(packed["scores"])
+        rank = np.asarray(packed["rank"])
+        tp = np.asarray(packed["tp"], bool)
+        ig = np.asarray(packed["ig"], bool)
+        for c in np.unique(cls):
+            if c < 0:  # padding sentinel
+                continue
+            m = cls == c
+            self._scores[int(c)].append(scores[m])
+            self._rank[int(c)].append(rank[m])
+            self._tp[int(c)].append(tp[m])
+            self._ig[int(c)].append(ig[m])
+        self._num_gt += np.asarray(packed["num_gt"], np.int64)
+
+    def gather(self) -> "DetectionEvaluator":
+        """Every rank's statistics folded into one evaluator, the same on
+        every rank (at world size 1 too); ``self`` without a process
+        group.
+
+        Each rank's packed statistics are padded to the largest count
+        (class sentinel -1), all-gathered as CPU tensors over the host
+        group (gloo beside the card's NCCL), and folded in rank order 0 ..
+        P-1, so that score ties resolve as in JAX's gather."""
+        import torch
+        import torch.distributed as dist
+
+        from ssd_tpu_torch.parallel.mesh import host_group
+
+        if not dist.is_initialized():
+            return self
+        group = host_group()
+        world = dist.get_world_size()
+        packed = self._pack()
+        n = len(packed["scores"])
+        counts = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+        dist.all_gather(counts, torch.tensor([n], dtype=torch.int64),
+                        group=group)
+        pad = int(max(int(c) for c in counts)) - n
+        padded = {
+            "scores": np.pad(packed["scores"], (0, pad)),
+            "rank": np.pad(packed["rank"], (0, pad)),
+            "tp": np.pad(packed["tp"], ((0, pad), (0, 0), (0, 0)))
+            .astype(np.uint8),
+            "ig": np.pad(packed["ig"], ((0, pad), (0, 0), (0, 0)))
+            .astype(np.uint8),
+            "cls": np.pad(packed["cls"], (0, pad), constant_values=-1),
+            "num_gt": packed["num_gt"],
+        }
+        gathered = {}
+        for k, v in padded.items():
+            local = torch.from_numpy(np.ascontiguousarray(v))
+            parts = [torch.empty_like(local) for _ in range(world)]
+            dist.all_gather(parts, local, group=group)
+            gathered[k] = [p.numpy() for p in parts]
+        out = DetectionEvaluator(self.num_classes, self.iou_thresholds)
+        for p in range(world):
+            out._load_packed({k: v[p] for k, v in gathered.items()})
+        assert int(out._num_gt.sum()) >= int(self._num_gt.sum())
+        return out
 
     def result(self) -> dict:
         t = len(self.iou_thresholds)

@@ -249,8 +249,8 @@ class Detector:
             images = torch.from_numpy(np.ascontiguousarray(images))
         return images.to(self.device, non_blocking=True)
 
-    def loss(self, batch: dict, teacher: "Detector | None" = None
-             ) -> tuple[torch.Tensor, dict]:
+    def loss(self, batch: dict, teacher: "Detector | None" = None,
+             l2: bool = True) -> tuple[torch.Tensor, dict]:
         """The training loss of one batch, with gradients.
 
         ``batch``: ``images`` uint8 ``(N, H, W, 3)``, ``boxes (N, M, 4)``,
@@ -262,6 +262,10 @@ class Detector:
         distillation loss (``ops/distill.py``), logged as ``distill_loss``.
         Returns ``(total, metrics)``; the metrics are detached scalars on
         the device.
+
+        ``l2``: add the L2 term to ``total`` and report it as
+        ``regularization_loss``; ``False`` leaves it out (a data-parallel
+        step adds its gradient once, after summing the ranks').
         """
         cfg = self.cfg
         # OHEM ranks per-anchor losses, which only the flat loss forms
@@ -280,13 +284,16 @@ class Detector:
             logits, deltas = flatten_levels(raw, cfg.num_classes)
             ld = losses.detection_loss(logits, deltas, targets, cfg.losses,
                                        anchors=self.anchors)
-        reg = losses.l2_regularization(self.model.parameters(),
-                                       cfg.losses.weight_decay)
-        total = ld.total + reg
-        metrics = {"loss": total, "classification_loss": ld.classification,
-                   "localization_loss": ld.localization,
-                   "regularization_loss": reg,
-                   "num_positives": ld.num_positives}
+        metrics = {"loss": None, "classification_loss": ld.classification,
+                   "localization_loss": ld.localization}
+        total = ld.total
+        if l2:
+            reg = losses.l2_regularization(self.model.parameters(),
+                                           cfg.losses.weight_decay)
+            total = total + reg
+            metrics["regularization_loss"] = reg
+        metrics["loss"] = total
+        metrics["num_positives"] = ld.num_positives
         if teacher is not None:
             with torch.no_grad():
                 t_raw = teacher.model.eval()(images)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from fractions import Fraction
@@ -31,6 +32,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_EPSILON, BATCH_NORM_MOMENTUM
+from ssd_tpu_torch.parallel.mesh import all_reduce_mean, step_group
 
 # int8 computes norms, activations and depthwise convs in bf16; its dense
 # convs take the quantized path (``QuantConv``).
@@ -187,6 +189,15 @@ class BatchNorm(nn.Module):
     (not in a checkpoint's recompute, ``recomputing``). Train mode keeps
     only its input for the backward (``_Recomputed``), not its f32 copies
     of it.
+
+    Inside a data-parallel step (``parallel.mesh.data_parallel``) the two
+    means are averaged over the ranks, which hold the same number of rows:
+    the global statistics of the global batch, as flax takes them under
+    GSPMD, with the global gradient (the all-reduce's backward is another
+    all-reduce), and the same running statistics on every rank. The
+    backward reruns the norm and so its collective: every rank runs the
+    same norms in the same order, so the collectives pair up. Group norm
+    is per image and needs nothing of this.
     """
 
     def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON,
@@ -200,12 +211,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def _train_norm(self, x: torch.Tensor, weight: torch.Tensor,
-                    bias: torch.Tensor):
-        """The batch-statistics norm -> ``(y, mean, var)``."""
+                    bias: torch.Tensor, group=None):
+        """The batch-statistics norm -> ``(y, mean, var)``; over the ranks
+        of ``group`` when given."""
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
-        var = torch.maximum(xf.square().mean(dim=(0, 2, 3))
-                            - mean.square(), mean.new_zeros(()))
+        mean_sq = xf.square().mean(dim=(0, 2, 3))
+        if group is not None:
+            mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq]),
+                                            group).unbind(0)
+        var = torch.maximum(mean_sq - mean.square(), mean.new_zeros(()))
         return self._affine(x, xf, mean, var, weight, bias), mean, var
 
     def _affine(self, x, xf, mean, var, weight, bias) -> torch.Tensor:
@@ -218,8 +233,10 @@ class BatchNorm(nn.Module):
         if not self.training:
             return self._affine(x, x.float(), self.running_mean,
                                 self.running_var, self.weight, self.bias)
-        y, mean, var = _Recomputed.apply(self._train_norm, x, self.weight,
-                                         self.bias)
+        group = step_group()
+        fn = (self._train_norm if group is None
+              else functools.partial(self._train_norm, group=group))
+        y, mean, var = _Recomputed.apply(fn, x, self.weight, self.bias)
         if not getattr(_local, "recomputing", False):
             with torch.no_grad():
                 m = self.momentum

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ssd_tpu_torch.ops.losses import _abs, _max0
+from ssd_tpu_torch.parallel.mesh import all_reduce_sum, step_group
 
 
 class DistillDict(NamedTuple):
@@ -110,6 +111,9 @@ def distillation_loss(student_raw, teacher_raw, num_classes: int,
             kl_sum, box_sum, w_sum = a, b, c
         else:
             kl_sum, box_sum, w_sum = kl_sum + a, box_sum + b, w_sum + c
+    group = step_group()
+    if group is not None:  # the global batch's weight, as in the main loss
+        w_sum = all_reduce_sum(w_sum, group)
     norm = torch.clamp_min(w_sum, 1.0)
     cls_loss = kl_sum / norm
     box_loss = box_sum / norm

@@ -3,7 +3,8 @@ OHEM and L2.
 
 Counterpart of ``ssd_tpu/ops/losses.py``, term for term and in its op
 order. Both losses are divided by the batch's number of positive anchors
-(at least 1), as in RetinaNet.
+(at least 1), as in RetinaNet; in a data-parallel step by the global
+batch's (``_num_positives``).
 
 Gradients follow JAX's where the two frameworks differ at a tie:
 ``maximum``/``minimum`` are ``torch.maximum``/``torch.minimum``, whose
@@ -24,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from ssd_tpu_torch.config import LossConfig
 from ssd_tpu_torch.ops import box_utils
 from ssd_tpu_torch.ops.targets import Targets
+from ssd_tpu_torch.parallel.mesh import all_reduce_sum, step_group
 
 _EPS = 1e-8
 
@@ -123,7 +125,14 @@ def _localization_elem(box_deltas: torch.Tensor, reg_targets: torch.Tensor,
 
 
 def _num_positives(targets: Targets) -> torch.Tensor:
+    """The loss normalizer: positive anchors, at least 1; inside a
+    data-parallel step (``parallel.mesh.data_parallel``) over the global
+    batch, so that each rank's loss is its own sum over the global count
+    and the losses and their gradients sum over the ranks."""
     s = targets.reg_weights.sum()
+    group = step_group()
+    if group is not None:
+        s = all_reduce_sum(s, group)
     return torch.maximum(s, s.new_ones(()))
 
 

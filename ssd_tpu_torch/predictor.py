@@ -32,8 +32,16 @@ and it issues no device work.
 
 ``--tta``: flip test-time augmentation fused by weighted box fusion
 (``tta.py``); ``--tiled``: native-resolution tiled inference of each image
-(``tiling.py``, one predict of its tiles per image).
+(``tiling.py``, one predict of its tiles per image); ``--mesh``:
+data-parallel serving over every visible card (``Predictor(mesh=True)``).
+
+Data-parallel serving (``mesh``, the JAX package's meshed predict): a
+replica of the model on each of the mesh's devices, batch buckets rounded
+up to a multiple of the device count, and each replica predicting its
+contiguous block of the bucket's rows (its own K1 launch on its own device
+and stream); the rows come back in order, the same as one device's.
 """
+
 
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from ssd_tpu_torch.export import (add_artifact_args,
                                   load_inference_artifact)
 from ssd_tpu_torch.models.detector import Detector
 from ssd_tpu_torch.ops.ingest import packed_shape
+from ssd_tpu_torch.parallel import mesh as mesh_lib
 
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 
@@ -91,15 +100,35 @@ class Predictor:
     forces the raw feed. ``staging.depth``: pinned staging buffers per feed
     shape, at least the number of batches in flight plus one (a serving
     loop raises it to its own depth).
+
+    ``mesh``: ``True`` (every visible card; ``[device]`` when one is
+    given) or a ``parallel.mesh.Mesh`` for data-parallel serving (the
+    module docstring); the replicas copy the weights once, here.
+    ``spatial_shard`` (height-sharded images) needs a mesh and is not
+    ported (M11b).
     """
 
     def __init__(self, cfg: Config, state: dict | None,
                  label_map: dict[int, str] | None = None,
                  preserve_aspect: bool = False, device=None,
-                 packed_ingest: bool | None = None):
+                 packed_ingest: bool | None = None, mesh=None,
+                 spatial_shard: bool = False):
+        if spatial_shard:
+            if mesh is None:
+                raise ValueError("spatial_shard requires a mesh")
+            raise NotImplementedError(f"spatial_shard {mesh_lib.M11B}")
+        if mesh is True:
+            mesh = mesh_lib.create_mesh(None if device is None else [device])
+        elif mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+            raise TypeError(f"mesh must be True or a parallel.mesh.Mesh, "
+                            f"not {type(mesh).__name__}")
         self.cfg = cfg
-        self.detector = Detector(cfg, state, device=device)
+        self.mesh = mesh
+        self.detector = Detector(cfg, state, device=(
+            device if mesh is None else mesh.device))
         self.device = self.detector.device
+        self.replicas = ([self.detector] if mesh is None
+                         else mesh_lib.replicate(self.detector, mesh))
         self.label_map = label_map
         self.preserve_aspect = preserve_aspect
         dense4 = cfg.model.stem_schedule == "dense4"
@@ -131,9 +160,9 @@ class Predictor:
     # -------------------------------------------------------------- serving
 
     def _min_bucket(self) -> int:
-        """Buckets are multiples of this (the data-parallel width; one
-        device serves here)."""
-        return 1
+        """Buckets are multiples of this: the data-parallel width, the
+        number of replicas."""
+        return len(self.replicas)
 
     def _bucket_for(self, n: int) -> int:
         """Batch bucket for n images: the next power of two, rounded up to
@@ -236,45 +265,67 @@ class Predictor:
             else:
                 host = np.empty(shape, self._feed_dtype())
             fill(host)
+        bounds = mesh_lib.row_bounds(shape[0], len(self.replicas))
+        devices = [r.device for r in self.replicas]
         with record_function("predict.copy"):
             if self._pinned:
-                feed = self.staging.upload(buf, event, self.device)
+                feeds = self.staging.upload_rows(buf, event, devices, bounds)
             else:
-                feed = torch.from_numpy(host).to(self.device,
-                                                 non_blocking=True)
+                feeds = [torch.from_numpy(host[lo:hi]).to(
+                    d, non_blocking=True) for d, (lo, hi) in zip(devices,
+                                                                 bounds)]
         with record_function("predict.launch"):
-            out = self.detector.predict(feed)
-        return {"out": out, "n": n, "valid_frac": valid_frac,
-                "single": single}
+            outs = [r.predict(f) for r, f in zip(self.replicas, feeds)]
+        return {"outs": outs, "bounds": bounds, "n": n,
+                "valid_frac": valid_frac, "single": single}
 
-    def _readback(self, parts: list[dict]) -> tuple[dict, object]:
+    @staticmethod
+    def _real_rows(part: dict) -> list:
+        """``(replica index, its first row, the rows)`` of a part's real
+        rows (the first ``n`` of the bucket), in row order."""
+        return [(i, lo, min(hi, part["n"]) - lo)
+                for i, (lo, hi) in enumerate(part["bounds"])
+                if lo < part["n"]]
+
+    def _readback(self, parts: list[dict]) -> tuple[dict, list | None]:
         """The detections of ``parts`` (their real rows, concatenated) on
         their way to the host: on the card asynchronous copies into pinned
-        tensors and the event that marks their end; on the CPU the tensors
-        themselves and no event."""
+        tensors and an event a device marking their end; on the CPU the
+        tensors themselves and no events."""
+        blocks = [(p["outs"][i], rows) for p in parts
+                  for i, _, rows in self._real_rows(p)]
         with torch.inference_mode(), record_function("predict.launch"):
-            if len(parts) == 1:
-                dev = {k: getattr(parts[0]["out"], k)[:parts[0]["n"]]
-                       for k in DET_KEYS}
-            else:
-                dev = {k: torch.cat([getattr(p["out"], k)[:p["n"]]
-                                     for p in parts]) for k in DET_KEYS}
             if self.device.type != "cuda":
-                return dev, None
-            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    for k, v in dev.items()}
-            for k, v in dev.items():
-                host[k].copy_(v, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        return host, event
+                if len(blocks) == 1:
+                    out, rows = blocks[0]
+                    return {k: getattr(out, k)[:rows] for k in DET_KEYS}, None
+                return {k: torch.cat([getattr(o, k)[:rows]
+                                      for o, rows in blocks])
+                        for k in DET_KEYS}, None
+            total = sum(rows for _, rows in blocks)
+            first = blocks[0][0]
+            host = {k: torch.empty((total, *getattr(first, k).shape[1:]),
+                                   dtype=getattr(first, k).dtype,
+                                   pin_memory=True) for k in DET_KEYS}
+            events, lo = {}, 0
+            for out, rows in blocks:
+                dev = out.num_boxes.device
+                with torch.cuda.device(dev):
+                    for k in DET_KEYS:
+                        host[k][lo:lo + rows].copy_(getattr(out, k)[:rows],
+                                                    non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                events[dev] = event  # a device's last copy ends its others
+                lo += rows
+        return host, list(events.values())
 
     def predict_dispatch(self, images) -> dict:
         """Preprocess and enqueue the device work and the readback without
         waiting for them. Returns a handle for ``predict_collect``."""
         part = self._enqueue(images)
-        host, event = self._readback([part])
-        return {"host": host, "event": event, "n": part["n"],
+        host, events = self._readback([part])
+        return {"host": host, "events": events, "n": part["n"],
                 "valid_frac": part["valid_frac"], "single": part["single"]}
 
     def _finish(self, arrays: dict, valid_frac, single: bool) -> dict:
@@ -299,10 +350,10 @@ class Predictor:
 
     @staticmethod
     def _wait(handle: dict) -> dict:
-        """Waits on a handle's event alone; its outputs as numpy."""
+        """Waits on a handle's events alone; its outputs as numpy."""
         with record_function("predict.readback"):
-            if handle["event"] is not None:
-                handle["event"].synchronize()
+            for event in handle["events"] or ():
+                event.synchronize()
             return {k: v.numpy() for k, v in handle["host"].items()}
 
     def predict_collect(self, handle: dict) -> dict:
@@ -320,8 +371,8 @@ class Predictor:
         in the forms ``predict_dispatch`` takes. Returns a handle for
         ``predict_collect_group``."""
         parts = [self._enqueue(list(b)) for b in batches]
-        host, event = self._readback(parts)
-        return {"host": host, "event": event,
+        host, events = self._readback(parts)
+        return {"host": host, "events": events,
                 "ns": [p["n"] for p in parts],
                 "valid_frac": [p["valid_frac"] for p in parts]}
 
@@ -417,13 +468,17 @@ def main(argv=None) -> None:
     p.add_argument("--tta", action="store_true",
                    help="flip test-time augmentation with weighted box "
                         "fusion (ssd_tpu_torch.tta)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard batches over every visible card "
+                        "(data-parallel serving)")
     args = p.parse_args(argv)
     if args.tta and args.tiled:
         p.error("--tta and --tiled are mutually exclusive")
 
     predictor = Predictor.from_checkpoint(args.artifact,
                                           preserve_aspect=args.letterbox,
-                                          device=args.device)
+                                          device=args.device,
+                                          mesh=args.mesh or None)
     results = []
     if args.tiled:
         from ssd_tpu_torch.tiling import TiledPredictor

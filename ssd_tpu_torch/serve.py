@@ -19,7 +19,10 @@ so request handling is decoupled from device work:
     device computes batch k while batch k + 1 is formed, packed and
     copied; it issues no device work, except with ``--tta``, where it runs
     the fusion of each batch's two views (``tta.TTAPredictor``, on the
-    card) and ``scan_depth`` is 1, as in the JAX package.
+    card) and ``scan_depth`` is 1, as in the JAX package;
+  * ``--mesh``: data-parallel serving over every visible card
+    (``Predictor(mesh=True)``: a replica a card, each batch's rows split
+    among them); ``scan_depth`` is 1 under a mesh, as in the JAX package.
 
 Endpoints:
   POST /v1/detect[?score_threshold=]  image bytes -> detections JSON
@@ -29,11 +32,12 @@ Endpoints:
     python -m ssd_tpu_torch.serve --export DIR_OR_FILE.npz --port 8000 \\
         [--max-batch 32] [--max-wait-ms 5] [--scan-depth 1] \\
         [--warmup-batches all] [--score-threshold 0.3] [--letterbox] \\
-        [--device cpu] [--tta]
+        [--device cpu] [--tta] [--mesh]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import queue
 import threading
@@ -121,8 +125,10 @@ class _Dispatcher(threading.Thread):
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
         # scan_depth > 1: group up to K batches ALREADY queued into one
-        # handle (one readback, one event); it adds no wait
-        self.scan_depth = max(1, int(scan_depth))
+        # handle (one readback, one event); it adds no wait. Under a mesh
+        # each batch is dispatched alone, as in the JAX package.
+        self.scan_depth = (1 if getattr(predictor, "mesh", None) is not None
+                           else max(1, int(scan_depth)))
         self.in_flight: "queue.Queue" = queue.Queue(maxsize=pipeline_depth)
         if predictor is not None:
             # a staging buffer for every batch that can be ahead of the card
@@ -411,10 +417,8 @@ class DetectionServer:
             self.httpd.server_close()
 
 
-def main(argv=None) -> None:
-    import argparse
-    import signal
-
+def build(argv=None) -> tuple["DetectionServer", argparse.Namespace]:
+    """The daemon of ``main``'s arguments, warmed up, not yet serving."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     add_artifact_args(p)
@@ -434,11 +438,15 @@ def main(argv=None) -> None:
     p.add_argument("--tta", action="store_true",
                    help="serve with flip TTA + weighted box fusion (2x the "
                         "device work a request; scan_depth drops to 1)")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel serving over every visible card "
+                        "(scan_depth drops to 1)")
     args = p.parse_args(argv)
 
     predictor = Predictor.from_checkpoint(args.artifact,
                                           preserve_aspect=args.letterbox,
-                                          device=args.device)
+                                          device=args.device,
+                                          mesh=args.mesh or None)
     if args.tta:
         from ssd_tpu_torch.tta import TTAPredictor
         predictor = TTAPredictor(predictor)
@@ -453,6 +461,13 @@ def main(argv=None) -> None:
         for b in args.warmup_batches.split(","):
             if b.strip():
                 predictor.warmup(int(b))
+    return server, args
+
+
+def main(argv=None) -> None:
+    import signal
+
+    server, args = build(argv)
     print(f"serving {server._model_info} on {args.host}:{server.port} "
           f"(max_batch={args.max_batch}, max_wait_ms={args.max_wait_ms})",
           flush=True)

@@ -34,6 +34,7 @@ from torch.profiler import record_function
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.data import native
+from ssd_tpu_torch.parallel.mesh import M11B
 from ssd_tpu_torch.predictor import Predictor
 
 PUSH_SPAN = "streaming.push"  # a push's host work: resize and enqueue
@@ -41,21 +42,24 @@ PUSH_SPAN = "streaming.push"  # a push's host work: resize and enqueue
 
 class StreamingDetector:
     """``state``: a state dict (``None``: weights seeded from 0);
-    ``device=None`` runs on the card. ``mesh``/``spatial_shard`` (the JAX
-    package's height-sharded frames, GSPMD's halo exchange) raise: they
-    belong to the scale-out slice (M11)."""
+    ``device=None`` runs on the card. ``mesh``: a ``parallel.mesh.Mesh``
+    (or ``True``) for the predictor's data-parallel replicas, as the JAX
+    package takes a mesh alone: a frame is bucketed to one row a replica
+    and every replica runs on its block, the others on padding rows, as
+    JAX's meshed bucket does. ``spatial_shard`` (the JAX package's
+    height-sharded frames, GSPMD's halo exchange) raises: ROADMAP.md
+    M11b."""
 
     def __init__(self, cfg: Config, state: dict | None, depth: int = 2,
                  mesh=None, spatial_shard: bool = False, device=None):
-        if mesh is not None or spatial_shard:
+        if spatial_shard:
             raise NotImplementedError(
-                "mesh= and spatial_shard= (height-sharded frames with the "
-                "GSPMD halo exchange) are not ported: they wait for M11, "
-                "scale-out")
+                "spatial_shard= (height-sharded frames with the GSPMD halo "
+                f"exchange) {M11B}")
         if depth < 1:
             raise ValueError(f"depth must be at least 1, got {depth}")
         self.cfg = cfg
-        self.predictor = Predictor(cfg, state, device=device)
+        self.predictor = Predictor(cfg, state, device=device, mesh=mesh)
         self.detector = self.predictor.detector
         self.device = self.predictor.device
         self.depth = depth

@@ -1,10 +1,23 @@
-"""The training loop on one device.
+"""The training loop, on one device or data-parallel over several.
 
-Counterpart of ``ssd_tpu/train.py`` without the mesh:
+Counterpart of ``ssd_tpu/train.py``:
 
     python -m ssd_tpu_torch.train --config configs/coco_mobilenet_640.json \\
         --workdir runs/t1 [--max-steps N] [--no-resume] [--profile N] \\
         [--device cpu]
+    torchrun --nproc-per-node N -m ssd_tpu_torch.train --config ... \\
+        --workdir ... [--device cpu]
+
+Under ``torchrun`` each rank is one process on its own card (NCCL; gloo
+with ``--device cpu``), JAX's process: it reads ``batch_size // N`` rows
+of each global batch through the pipeline's host shard (``host_id`` its
+rank), runs the data-parallel step (``train_step.make_train_step(mesh=)``:
+global batch norm, loss normalizers and gradient sum, so the step is the
+one-device step at the global batch), with the state replicated or, under
+``train.param_sharding: "fsdp"``, sharded by FSDP. Rank 0 alone logs and
+writes checkpoints, ``best/`` and ``export/``; every rank restores, and
+evaluates its own rows of the validation set before the statistics are
+gathered (``evaluate``).
 
 The loop reads ``data.train_file_pattern`` through the deterministic,
 resumable, prefetching ``data.pipeline.Pipeline`` (augmentation, mosaic,
@@ -56,6 +69,7 @@ from ssd_tpu_torch.export import (load_inference_artifact,
                                   save_inference_artifact)
 from ssd_tpu_torch.models.detector import Detector
 from ssd_tpu_torch.ops import matching_cuda, nms_cuda
+from ssd_tpu_torch.parallel import mesh as mesh_lib
 from ssd_tpu_torch.train_step import (Optimizer, TrainState,
                                       create_train_state,
                                       inference_variables, make_lr_schedule,
@@ -97,24 +111,41 @@ class DeviceFeed:
         return out
 
 
-def evaluate(detector: Detector, cfg: Config) -> dict:
+def evaluate(detector: Detector, cfg: Config, host_id: int = 0,
+             num_hosts: int = 1, max_batches: int | None = None,
+             mesh=None) -> dict:
     """COCO-style mAP of ``detector`` (its weights as they are) over
     ``cfg.data.val_file_pattern``, read by an eval ``Pipeline`` at
-    ``train.batch_size``: the padded tail rows are skipped (``valid``),
-    crowd boxes are ignore regions, areas are taken at ``orig_hw``. Raises
-    ``FileNotFoundError`` when the pattern matches nothing."""
+    ``train.batch_size // num_hosts`` rows (at least 1) of host
+    ``host_id``'s shard: the padded tail rows are skipped (``valid``),
+    crowd boxes are ignore regions, areas are taken at ``orig_hw``. Under a
+    process group every rank calls it with its rank as ``host_id`` and the
+    statistics are gathered (``DetectionEvaluator.gather``), so every rank
+    returns the global numbers. ``mesh``: the rows of each batch are
+    predicted in contiguous blocks, one on each of the mesh's devices (a
+    replica of ``detector`` each; K1 on each device), and come back in
+    order. Raises ``FileNotFoundError`` when the pattern matches
+    nothing."""
+    replicas = [detector] if mesh is None else mesh_lib.replicate(detector,
+                                                                  mesh)
     evaluator = DetectionEvaluator(cfg.num_classes)
     pipeline = Pipeline(cfg.data.val_file_pattern, cfg, is_training=False,
-                        batch_size=max(cfg.train.batch_size, 1))
-    for batch in pipeline:
-        out = detector.predict(batch["images"])
+                        batch_size=max(cfg.train.batch_size // num_hosts, 1),
+                        host_id=host_id, num_hosts=num_hosts)
+    for i, batch in enumerate(pipeline):
+        if max_batches is not None and i >= max_batches:
+            break
+        images = batch["images"]
+        bounds = mesh_lib.row_bounds(len(images), len(replicas))
+        outs = [r.predict(images[lo:hi])
+                for r, (lo, hi) in zip(replicas, bounds) if hi > lo]
         evaluator.add_batch(
-            {k: getattr(out, k).cpu().numpy() for k in (
-                "boxes", "scores", "labels", "num_boxes")},
+            {k: mesh_lib.local_rows([getattr(o, k) for o in outs])
+             for k in ("boxes", "scores", "labels", "num_boxes")},
             batch["boxes"], batch["labels"], batch["num_boxes"],
             valid=batch["valid"], gt_is_crowd=batch["is_crowd"],
             orig_hw=batch["orig_hw"])
-    return evaluator.result()
+    return evaluator.gather().result()
 
 
 def warm_start(state: TrainState, artifact_path: str) -> TrainState:
@@ -132,7 +163,7 @@ def warm_start(state: TrainState, artifact_path: str) -> TrainState:
                 d = donor.get(name)
                 if (d is not None and d.shape == leaf.shape
                         and d.dtype == leaf.dtype):
-                    leaf.copy_(d)
+                    mesh_lib.assign(leaf, d)
                     copied += 1
         print(f"warm_start: copied {copied}/{len(fresh)} {kind} leaves "
               f"from {artifact_path}", flush=True)
@@ -182,13 +213,33 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
           profile_steps: int = 0) -> dict:
     """Runs the loop to ``max_steps`` (or ``train.num_steps``); returns the
     last step's metrics as floats. ``batches``: an iterator of host batches
-    with ``state()``/``restore()``; ``None`` reads the tfrecords."""
+    with ``state()``/``restore()`` (under a process group, of this rank's
+    rows); ``None`` reads the tfrecords. Under ``torchrun`` (or a process
+    group already started) the loop is data-parallel over the ranks (the
+    module docstring)."""
     t = cfg.train
     accum = max(t.grad_accum_steps, 1)
     if t.batch_size % accum:
         raise ValueError(f"train.batch_size ({t.batch_size}) must divide by "
                          f"grad_accum_steps ({accum})")
-    detector = Detector(cfg, device=device)
+    if t.param_sharding not in ("replicated", "fsdp"):
+        raise ValueError(
+            f"unknown train.param_sharding: {t.param_sharding!r}")
+    mesh = (mesh_lib.create_mesh()
+            if mesh_lib.initialize_distributed(device) else None)
+    rank, world = mesh_lib.rank_and_world()
+    if t.batch_size % world:
+        raise ValueError(f"train.batch_size ({t.batch_size}) must divide by "
+                         f"the data axis ({world})")
+    if accum > 1 and (t.batch_size // accum) % world:
+        # JAX's refusal (its SPMD depthwise backward miscomputes a
+        # microbatch the data axis does not divide); here it also keeps
+        # each rank's stride over its own rows equal to JAX's over the
+        # global batch
+        raise ValueError(
+            f"microbatch ({t.batch_size}//{accum}) must divide by "
+            f"the data axis ({world}) for grad accumulation")
+    detector = Detector(cfg, device=device if mesh is None else mesh.device)
     device = detector.device
     # the teacher fails fast, before any data or checkpoint is touched
     teacher = load_teacher(cfg, device)
@@ -198,10 +249,14 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
                              keep=t.keep_checkpoints)
     if batches is None:
         batches = Pipeline(cfg.data.train_file_pattern, cfg,
-                           is_training=True, batch_size=t.batch_size,
-                           seed=t.seed)
+                           is_training=True, batch_size=t.batch_size // world,
+                           host_id=rank, num_hosts=world, seed=t.seed)
 
-    state = create_train_state(detector, optimizer, t.ema_decay, seed=t.seed)
+    detector.model.reset_parameters(t.seed)
+    if mesh is not None and t.param_sharding == "fsdp":
+        # before the state: its moments and EMA are made sharded
+        mesh_lib.fsdp_sharded(mesh, detector.model)
+    state = create_train_state(detector, optimizer, t.ema_decay)
     latest = ckpt.latest_step() if resume else None
     if latest is not None:
         state, it_state = ckpt.restore(state)
@@ -222,7 +277,7 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
 
     def build_step(det: Detector):
         return make_train_step(det, optimizer, t.ema_decay, accum,
-                               teacher=teacher_for(det))
+                               teacher=teacher_for(det), mesh=mesh)
 
     step_fns = {tuple(cfg.image_hw()): build_step(detector)}
 
@@ -243,10 +298,11 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
         preempted["flag"] = True
 
     previous = signal.signal(signal.SIGTERM, _sigterm)
-    logger = MetricLogger(workdir)
+    logger = MetricLogger(workdir if rank == 0 else None)
     feed = DeviceFeed(device)
     num_steps = max_steps or t.num_steps
-    profile_start = state.step + PROFILE_START if profile_steps > 0 else -1
+    profile_start = (state.step + PROFILE_START
+                     if profile_steps > 0 and rank == 0 else -1)
     prof = None
     metrics = {}
     data_iter = iter(batches)
@@ -271,7 +327,7 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
             with record_function("train.step"):
                 state, metrics = step_fn_for(hw)(state, dev_batch)
             step = state.step
-            if step % t.log_every == 0:
+            if step % t.log_every == 0 and rank == 0:
                 with record_function("train.log"):
                     logger.log(step, metrics, extra={
                         "learning_rate": float(lr_fn(step)),
@@ -295,14 +351,21 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
                     else:
                         eval_det.model.load_state_dict(
                             inference_variables(state))
-                    result = evaluate(eval_det, cfg)
-                    logger.log(step, {}, extra={"mAP": result["mAP"],
-                                                "AP50": result["AP50"]})
+                    # every rank: its rows, then the gathered numbers,
+                    # the same on every rank, so the branch below is taken
+                    # in lockstep (inference_variables is a collective
+                    # under FSDP)
+                    result = evaluate(eval_det, cfg, rank, world, mesh=mesh)
+                    if rank == 0:
+                        logger.log(step, {}, extra={"mAP": result["mAP"],
+                                                    "AP50": result["AP50"]})
                     if result["mAP"] > best_map:
                         best_map = result["mAP"]
-                        save_inference_artifact(
-                            os.path.join(workdir, BEST_NAME), cfg,
-                            inference_variables(state), label_map)
+                        served = inference_variables(state)
+                        if rank == 0:
+                            save_inference_artifact(
+                                os.path.join(workdir, BEST_NAME), cfg,
+                                served, label_map)
                 except FileNotFoundError:
                     pass  # no val set configured
     except Exception:
@@ -320,8 +383,10 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
 
     ckpt.save(state, batches.state())
     if not preempted["flag"]:
-        save_inference_artifact(os.path.join(workdir, EXPORT_NAME), cfg,
-                                inference_variables(state), label_map)
+        served = inference_variables(state)
+        if rank == 0:
+            save_inference_artifact(os.path.join(workdir, EXPORT_NAME), cfg,
+                                    served, label_map)
     if not metrics:
         return {}
     return dict(zip(metrics, torch.stack(
@@ -358,21 +423,28 @@ def main(argv=None) -> None:
     if not os.path.exists(args.config):
         p.error(f"config file not found: {args.config}")
     cfg = Config.load(args.config)
+    mesh_lib.initialize_distributed(args.device)  # under torchrun
+    rank, world = mesh_lib.rank_and_world()
     os.makedirs(args.workdir, exist_ok=True)
-    cfg.save(os.path.join(args.workdir, "config.json"))
+    if rank == 0:
+        cfg.save(os.path.join(args.workdir, "config.json"))
     matching_cuda.launches = nms_cuda.launches = 0
     t0 = time.perf_counter()
-    last = train(cfg, args.workdir, resume=not args.no_resume,
-                 max_steps=args.max_steps, device=args.device,
-                 profile_steps=args.profile)
-    cuda = torch.device(args.device or "cuda").type == "cuda"
-    print(json.dumps({
-        "train_done": True, "final_metrics": last,
-        "wall_s": time.perf_counter() - t0,
-        "kernel_launches": {"match": matching_cuda.launches,
-                            "nms": nms_cuda.launches},
-        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
-                         if cuda else None)}), flush=True)
+    try:
+        last = train(cfg, args.workdir, resume=not args.no_resume,
+                     max_steps=args.max_steps, device=args.device,
+                     profile_steps=args.profile)
+        cuda = torch.device(args.device or "cuda").type == "cuda"
+        print(json.dumps({
+            "train_done": True, "final_metrics": last,
+            "wall_s": time.perf_counter() - t0,
+            "rank": rank, "world_size": world,
+            "kernel_launches": {"match": matching_cuda.launches,
+                                "nms": nms_cuda.launches},
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None)}), flush=True)
+    finally:
+        mesh_lib.shutdown_distributed()
 
 
 if __name__ == "__main__":

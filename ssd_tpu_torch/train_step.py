@@ -18,6 +18,17 @@ optax's and not ``torch.optim``'s:
   before this one, so the first update of a warm-up has lr 0.
 
 Schedules are evaluated in f32 in optax's op order (``make_lr_schedule``).
+
+Under a mesh (``make_train_step(mesh=)``, one rank a device) the step is
+the one-device step at the global batch, as GSPMD makes of JAX's: batch
+norm takes the global statistics and the loss normalizers are global
+(``parallel.mesh.data_parallel``), the gradients are summed over the ranks
+(each rank's loss is its own rows' sum over the global count), L2's
+gradient is added once to the sum, and the metrics are the global ones,
+the same on every rank, as is every update. The state is replicated, or
+sharded by FSDP (``parallel.mesh.fsdp_sharded``) before
+``create_train_state``, so that the optimizer state and the EMA are
+``DTensor`` shards beside their parameters.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ import torch
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.models.detector import Detector
+from ssd_tpu_torch.ops.losses import l2_regularization
+from ssd_tpu_torch.parallel import mesh as mesh_lib
 
 _F32 = np.float32
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -169,16 +182,23 @@ def create_train_state(detector: Detector, optimizer: Optimizer,
 
 def inference_variables(state: TrainState) -> dict:
     """The state dict to serve: the EMA weights when tracked, and the BN
-    running statistics."""
+    running statistics; whole tensors of an FSDP state (a collective:
+    every rank calls it)."""
     params = state.ema_params if state.ema_params is not None else state.params
-    out = {k: v.detach() for k, v in params.items()}
+    out = {k: mesh_lib.full_tensor(v.detach()) for k, v in params.items()}
     out.update({k: v.detach() for k, v in state.batch_stats.items()})
     return out
 
 
+# metrics that are a rank's share of the global value (summed over ranks)
+_SUMMED = ("loss", "classification_loss", "localization_loss",
+           "distill_loss")
+
+
 def make_train_step(detector: Detector, optimizer: Optimizer,
                     ema_decay: float = 0.0, grad_accum_steps: int = 1,
-                    teacher: Detector | None = None):
+                    teacher: Detector | None = None,
+                    mesh: "mesh_lib.Mesh | None" = None):
     """Returns ``step(state, batch) -> (state, metrics)``, which updates the
     state in place.
 
@@ -189,32 +209,54 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
     microbatches (``batch[i::n]``, as the JAX package does), each with its
     own loss normaliser and BN batch statistics; the gradients and metrics
     are summed in order and averaged, and one update is applied. BN running
-    statistics update once per microbatch. ``metrics["grad_norm"]`` is the
-    global norm of the averaged gradients, before freeze and clip.
+    statistics update once per microbatch. L2 is added once, after the
+    backward (``_add_l2``). ``metrics["grad_norm"]`` is the global norm of
+    the averaged gradients with L2's, before freeze and clip.
+
+    ``mesh``: a data-parallel step over the mesh's ranks (see the module
+    docstring): ``batch`` is this rank's rows (equal counts on every
+    rank), tensors on its device or a host batch, which goes there through
+    the pinned staging (``parallel.mesh.shard_batch``); microbatches
+    stride each rank's rows, which equals JAX's stride over the global
+    batch when the rank's rows divide by ``grad_accum_steps``. The
+    replicated gradients are all-reduced (one flat buffer), an FSDP
+    state's (``DTensor`` parameters) arrive reduce-scattered; L2 is added
+    to the sum.
     """
     n = max(grad_accum_steps, 1)
     decay = _F32(ema_decay)
     keep = float(_F32(1) - decay)
     decay = float(decay)
+    group = None if mesh is None else mesh.group
+    weight_decay = detector.cfg.losses.weight_decay
 
     def step(state: TrainState, batch: dict):
+        if group is not None and not isinstance(batch["images"],
+                                                torch.Tensor):
+            batch = mesh_lib.shard_batch(mesh, batch)
         params = state.params
         for p in params.values():
             p.grad = None
         msum = None
-        for i in range(n):
-            micro = batch if n == 1 else {k: v[i::n] for k, v in batch.items()}
-            total, metrics = detector.loss(micro, teacher)
-            total.backward()
-            msum = metrics if msum is None else {
-                k: msum[k] + metrics[k] for k in msum}
+        with mesh_lib.data_parallel(group):
+            for i in range(n):
+                micro = (batch if n == 1
+                         else {k: v[i::n] for k, v in batch.items()})
+                total, metrics = detector.loss(micro, teacher, l2=False)
+                total.backward()
+                msum = metrics if msum is None else {
+                    k: msum[k] + metrics[k] for k in msum}
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if group is not None:
+            _reduce(grads, msum, group)
         if n > 1:
             inv = 1.0 / n
             grads = {k: g * inv for k, g in grads.items()}
             msum = {k: v * inv for k, v in msum.items()}
-        msum["grad_norm"] = global_norm(grads.values()).detach()
+        _add_l2(grads, params, msum, weight_decay)
+        msum["grad_norm"] = mesh_lib.full_tensor(
+            global_norm(grads.values()).detach())
         optimizer.update(grads, state.opt_state, params)
         for p in params.values():
             p.grad = None
@@ -227,3 +269,33 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
 
     return step
 
+
+def _reduce(grads: dict, metrics: dict, group) -> None:
+    """Sums the replicated gradients and each rank's share of the metrics
+    over the ranks, in place (FSDP's sharded gradients are already
+    summed). ``num_positives`` is global already."""
+    plain = [g for g in grads.values() if not mesh_lib.is_sharded(g)]
+    shares = [k for k in _SUMMED if k in metrics]
+    summed = torch.stack([metrics[k] for k in shares])
+    mesh_lib.all_reduce_(plain + [summed], group)
+    metrics.update(zip(shares, summed.unbind(0)))
+
+
+def _add_l2(grads: dict, params: dict, metrics: dict,
+            weight_decay: float) -> None:
+    """The step's L2, once, after the backward (and a data-parallel
+    step's sum over the ranks): its gradient ``weight_decay * w`` on each
+    kernel (``losses.l2_regularization``'s leaves; an FSDP state's
+    shard), its value (a collective under FSDP) in the loss and the
+    metrics. One path for every step, so that a step at world size 1 is
+    the one-device step bit for bit: through autograd the L2 term would
+    join a head weight's gradient among its pyramid levels' terms, in
+    another order than after them."""
+    with torch.no_grad():
+        for k, p in params.items():
+            if p.dim() >= 2:
+                grads[k] = grads[k] + p * weight_decay
+        reg = mesh_lib.full_tensor(
+            l2_regularization(params.values(), weight_decay))
+    metrics["loss"] = metrics["loss"] + reg
+    metrics["regularization_loss"] = reg

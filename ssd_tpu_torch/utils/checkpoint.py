@@ -9,7 +9,15 @@ file and renamed into place, so a crash never leaves a partial checkpoint.
 The newest ``keep`` are kept.
 
 Restore copies into the given state's tensors, which are the model's own,
-so the model is restored with it. Toggling ``train.ema_decay`` between the
+so the model is restored with it.
+
+Under a process group every rank calls ``save`` and ``restore``: a save
+gathers the whole tensors of an FSDP state (a collective), rank 0 alone
+writes, and a barrier ends it; every rank reads the file and takes its own
+shard. A checkpoint holds whole tensors either way, so it resumes at any
+world size and under either ``param_sharding`` (orbax's topology-free
+restore). The iterator state is rank 0's: its counters are the same on
+every rank, as orbax's primary host's serve every host. Toggling ``train.ema_decay`` between the
 run that wrote a checkpoint and the one that reads it is tolerated as the
 JAX package tolerates it: saved EMA weights are dropped, or a missing EMA is
 re-seeded from the restored params.
@@ -22,7 +30,10 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
+from ssd_tpu_torch.parallel.mesh import (assign, full_tensor, host_group,
+                                         rank_and_world)
 from ssd_tpu_torch.train_step import TrainState
 
 _NAME = "ckpt_{:010d}.pt"
@@ -33,7 +44,7 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
+        return full_tensor(tree.detach()).cpu().clone()
     return tree
 
 
@@ -46,7 +57,7 @@ def _copy_into(dst: dict, src: dict, what: str) -> None:
     with torch.no_grad():
         for k, t in dst.items():
             if isinstance(t, torch.Tensor):
-                t.copy_(src[k])
+                assign(t, src[k])
             elif isinstance(t, dict):
                 _copy_into(t, src[k], f"{what}/{k}")
             else:
@@ -85,12 +96,16 @@ class TrainCheckpointer:
             "ema_params": _to_cpu(state.ema_params),
             "iterator": iterator_state,
         }
-        path = os.path.join(self.directory, _NAME.format(state.step))
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
-            os.unlink(os.path.join(self.directory, _NAME.format(old)))
+        rank, world = rank_and_world()
+        if rank == 0:
+            path = os.path.join(self.directory, _NAME.format(state.step))
+            tmp = path + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
+                os.unlink(os.path.join(self.directory, _NAME.format(old)))
+        if world > 1:  # every rank sees the file before it goes on
+            dist.barrier(group=host_group())
 
     def restore(self, state: TrainState,
                 step: int | None = None) -> tuple[TrainState, dict | None]:

@@ -37,7 +37,8 @@ for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
              "models.shufflenet", "models.resnet", "ops.fused_head",
              "tools.train_memory", "tiling", "tta", "ops.wbf",
              "eval.__main__", "streaming", "export",
-             "tools.bench_streaming"):
+             "tools.bench_streaming", "parallel", "parallel.mesh",
+             "tools.scaleout_check"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """

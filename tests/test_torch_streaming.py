@@ -9,7 +9,7 @@ package's ``StreamingDetector`` on the CPU, on the 64 px f32 model of
   many as pushed, the oldest yielded once more than ``depth`` are in
   flight; each frame's detections within the golden set rule of JAX's;
   ``num_boxes`` an ``int``; ``stats()`` with JAX's keys;
-* ``mesh=``/``spatial_shard=`` raise, naming M11;
+* ``spatial_shard=`` raises, naming M11b; ``mesh=`` is taken;
 * ``python -m ssd_tpu_torch.tools.bench_streaming --device cpu`` prints
   JAX's keys (bf16 and ``--int8``).
 """
@@ -109,10 +109,19 @@ def test_streaming_matches_jax(streams, depth):
 
 
 def test_mesh_and_spatial_shard_raise():
+    """``spatial_shard`` raises, naming M11b; ``mesh`` is taken as JAX
+    takes it alone (a mesh of this process's devices), and anything else
+    given as a mesh raises."""
+    from ssd_tpu_torch.parallel import create_mesh
     cfg = Config.from_dict(model_dict("reference"))
-    for kwargs in ({"mesh": object()}, {"spatial_shard": True}):
-        with pytest.raises(NotImplementedError, match="M11"):
-            StreamingDetector(cfg, None, device="cpu", **kwargs)
+    for kwargs in ({}, {"mesh": create_mesh(["cpu"])}):
+        with pytest.raises(NotImplementedError, match="M11b"):
+            StreamingDetector(cfg, None, device="cpu", spatial_shard=True,
+                              **kwargs)
+    with pytest.raises(TypeError, match="mesh"):
+        StreamingDetector(cfg, None, device="cpu", mesh=object())
+    meshed = StreamingDetector(cfg, None, mesh=create_mesh(["cpu"]))
+    assert meshed.device.type == "cpu" and meshed.stats() == {}
     assert StreamingDetector(cfg, None, device="cpu").stats() == {}
 
 

@@ -382,6 +382,23 @@ def test_bench_train_on_the_cpu(tmp_path, capsys):
     assert result["match_launches"] == 0 and result["device"] == "cpu"
 
 
+def test_scaleout_check_two_gloo_ranks_on_the_cpu():
+    """``tools/scaleout_check``, as ``chip_smoke.py``'s phase ``scaleout``
+    (e) runs it on the card, at 128 px and width 0.25: ``torchrun`` of
+    bench_train as two gloo ranks, with FSDP, against the one-process step
+    on the same 4 rows over three steps of the flagship's recipe: the
+    ranks bit-identical, within the tool's f32 bars."""
+    from ssd_tpu_torch.tools import scaleout_check
+    path = os.path.join(ROOT, "configs", "coco_mobilenet_640_flagship.json")
+    row = scaleout_check.run(path, 2, 4, device="cpu", overrides=[
+        "image_size=128", "model.width_multiplier=0.25",
+        "model.compute_dtype=float32", "model.fpn_channels=16",
+        "model.head_depth=1", "train.param_sharding=fsdp"])
+    assert row["ok"] and row["ranks_bit_identical"], row
+    assert row["param_sharding"] == "fsdp" and row["ranks"] == 2
+    assert row["vs_one_process"]["max_abs_diff"] < 1e-5, row
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["regen"]:
         np.savez_compressed(EVAL_ASSET, **eval_golden_arrays())
