@@ -171,6 +171,21 @@ any failure raises:
     the ranks' states bit-identical and within the f32 bars of the
     one-process step on the 8 rows. ``python3 chip_smoke.py --phase
     scaleout`` runs this phase alone, after the build;
+    scaleout_m11b: (f) channel TP at the flagship's full width, f32, two
+    gloo ranks on the card on a (1, 2) mesh (``tools/scaleout_check.py
+    --model-parallelism 2``), 3 steps at b4 within (e)'s bars of the
+    one-process step, K2 once a step and rank; (g) ``tools/dryrun.py``'s
+    ``dryrun_multichip(4)``: TP, then FSDP x TP with 2 accumulation steps
+    on a (2, 2) mesh of four gloo ranks on the card, its meshed predict
+    equal to one device's; (h) ``configs/streaming_1024.json`` streamed
+    with each frame's rows in 4 strips of the card (``spatial_shard``, the
+    halo exchange of ``parallel/spatial.py``), 16 frames in f32 within
+    1e-5 of the unsplit stream and in bf16 under the golden rule, K1 once
+    a frame, no wait for the card under a push, ms a frame beside the
+    unsplit stream's; the flagship ``Predictor(spatial_shard=True)`` on a
+    (2, 2) mesh of the card at b8; with four cards visible, (h)'s bf16
+    stream on four cards and each card's peak memory over a 1024 frame
+    against one card's. ``--phase scaleout_m11b`` runs it alone;
 11. the kernels line, then the card's ``nvidia-smi`` line, then the
     result.
 
@@ -228,6 +243,7 @@ from ssd_tpu_torch.predictor import (Predictor, detection_rows,
                                      detections_arrays)
 from ssd_tpu_torch.quant import calibrate, int8_config
 from ssd_tpu_torch.serve import DetectionServer
+from ssd_tpu_torch.parallel.spatial import STRIP_SPAN
 from ssd_tpu_torch.streaming import PUSH_SPAN, StreamingDetector
 from ssd_tpu_torch.tiling import TiledPredictor
 from ssd_tpu_torch.parallel import mesh as mesh_lib
@@ -3105,6 +3121,229 @@ def phase_scaleout(power_line: str) -> tuple[dict, dict]:
     return k1, k2
 
 
+# ------------------------------------------------- the rest of scale-out (M11b)
+
+M11B_TP_BATCH = 4  # (f): the f32 flagship, both ranks on the same 4 rows
+M11B_FRAMES = 16  # (h): frames a stream
+M11B_STRIPS = 4
+M11B_F32_ATOL = 1e-5  # tests/test_spatial.py's bars
+M11B_BF16_SHARE = 0.9  # bf16 detections of the split matched, golden rule
+M11B_PREDICT_BATCH = 8
+
+
+def _m11b_tp(power_line: str) -> tuple[dict, int]:
+    """(f): the f32 flagship at TP 2 on two gloo ranks on the one card
+    (``tools/scaleout_check.py --model-parallelism 2``: ``torchrun`` of
+    ``tools/bench_train.py``, mesh (1, 2), both ranks on the same rows),
+    3 steps at b4 against the one-process step on the same rows at (e)'s
+    f32 bars, the ranks bit-identical, K2 once a step and rank."""
+    row = scaleout_check.run(FLAGSHIP, 2, M11B_TP_BATCH, backend="gloo",
+                             overrides=["model.compute_dtype=float32"],
+                             timeout=GLOO_TIMEOUT_S, model_parallelism=2)
+    if (not row["ok"] or row["match_launches"] != [1, 1]
+            or not row["model_split_leaves"]):
+        raise AssertionError(f"(f) TP 2 on the card: {row}")
+    return row, sum(row["match_launches"])
+
+
+def _m11b_dryrun() -> tuple[dict, int, int]:
+    """(g): ``tools/dryrun.dryrun_multichip(4)``: FSDP x TP on a (2, 2)
+    mesh of gloo ranks on the one card (NCCL, a card a rank, where four
+    are visible), its meshed predict equal to one device's."""
+    from ssd_tpu_torch.tools import dryrun
+    out = dryrun.dryrun_multichip(4)
+    ranks = out["ranks"]
+    if any(r["meshed_predict_max_delta"] != 0.0 or not r["tp_sharded_leaves"]
+           or r["match_launches"] != 3 or r["nms_launches"] != 2
+           for r in ranks):
+        raise AssertionError(f"(g) the dry run: {out}")
+    return ({"line": out["line"], "backend": out["backend"],
+             "k2_per_rank": [r["match_launches"] for r in ranks],
+             "k1_per_rank": [r["nms_launches"] for r in ranks]},
+            sum(r["match_launches"] for r in ranks),
+            sum(r["nms_launches"] for r in ranks))
+
+
+def _strips_mesh(devices: list) -> "mesh_lib.Mesh":
+    return mesh_lib.create_mesh(devices, model_parallelism=len(devices))
+
+
+def _stream_frames(stream, pool: list) -> tuple[list, float]:
+    """``M11B_FRAMES`` frames of ``pool`` through ``stream`` after its
+    warmup -> (results as one-row arrays, host ms a frame)."""
+    stream.warmup()
+    torch.cuda.synchronize()
+    out = []
+    t0 = time.perf_counter()
+    for i in range(M11B_FRAMES):
+        out.extend(stream.push(pool[i % len(pool)]))
+    out.extend(stream.flush())
+    ms = (time.perf_counter() - t0) * 1e3 / M11B_FRAMES
+    return [{k: np.asarray(r[k])[None] for k in DET_KEYS} for r in out], ms
+
+
+def _within_bars(got: dict, want: dict) -> float:
+    """The largest score or box distance; raises unless ``num_boxes`` and
+    ``labels`` are equal and it is within ``M11B_F32_ATOL``."""
+    if not (np.array_equal(got["num_boxes"], want["num_boxes"])
+            and np.array_equal(got["labels"], want["labels"])):
+        raise AssertionError("split detections differ in count or labels")
+    d = max(float(np.abs(got[k] - want[k]).max(initial=0.0))
+            for k in ("scores", "boxes"))
+    if d > M11B_F32_ATOL:
+        raise AssertionError(f"split detections {d} from the unsplit ones")
+    return d
+
+
+def _m11b_stream(cfg: Config, pool: list, devices: list) -> dict:
+    """One dtype of (h): the unsplit stream and the stream with each
+    frame's rows over ``devices``, the same seeded weights (class bias
+    -2.5), ``M11B_FRAMES`` frames each; f32 frames within the spatial
+    bars, bf16 frames under ``set_match``; K1 once a frame, and no wait
+    for the card under a push (its strips' threads included) in a
+    profiled window."""
+    plain = StreamingDetector(cfg, None, device=devices[0])
+    with torch.no_grad():
+        plain.detector.model.head.class_net.predict.bias.fill_(
+            FLAGSHIP_CLASS_BIAS)
+    state = plain.detector.model.state_dict()
+    split = StreamingDetector(cfg, state, mesh=_strips_mesh(devices),
+                              spatial_shard=True)
+    want, plain_ms = _stream_frames(plain, pool)
+    nms_cuda.launches = 0
+    got, split_ms = _stream_frames(split, pool)
+    launches = nms_cuda.launches
+    if launches != M11B_FRAMES + 1:  # and the warmup's frame
+        raise AssertionError(f"(h) {launches} K1 launches for "
+                             f"{M11B_FRAMES} frames and the warmup")
+    row = {"dtype": cfg.model.compute_dtype, "frames": M11B_FRAMES,
+           "strips": len(devices), "devices": sorted({str(d)
+                                                      for d in devices}),
+           "ms_per_frame": split_ms, "unsplit_ms_per_frame": plain_ms,
+           "nms_launches": launches - 1,
+           "detections": int(sum(int(r["num_boxes"][0]) for r in got))}
+    if cfg.model.compute_dtype == "float32":
+        row["max_abs_diff"] = max(_within_bars(g, w)
+                                  for g, w in zip(got, want))
+        row["bar"] = M11B_F32_ATOL
+    else:
+        matched = total = 0
+        for g, w in zip(got, want):
+            m, t = set_match(g, w)
+            matched, total = matched + m, total + t
+        row["set_match"] = [matched, total]
+        if total == 0 or matched < M11B_BF16_SHARE * total:
+            raise AssertionError(f"(h) bf16 split frames matched "
+                                 f"{matched}/{total}")
+    summary = bench_streaming.profile_pushes(split, pool, 4)
+    stalls = profiling.syncs_under(summary, (PUSH_SPAN, STRIP_SPAN))
+    if stalls:
+        raise AssertionError(f"(h) a split push waited for the card: "
+                             f"{stalls}")
+    row["profiled_push_syncs"] = 0
+    row["device_ms_per_frame"] = summary["device_busy_ms"] / 4
+    return row
+
+
+def _m11b_predict() -> tuple[dict, int]:
+    """(h): the flagship ``Predictor(spatial_shard=True)`` on a (2, 2)
+    mesh of the one card at b8 against the plain predictor on the same
+    raw uint8 feed, under ``set_match`` (bf16), K1 once a data row."""
+    plain = _seeded_flagship()
+    state = plain.detector.model.state_dict()
+    raw = Predictor(plain.cfg, state, device=DEVICE, packed_ingest=False)
+    split = Predictor(plain.cfg, state, spatial_shard=True,
+                      mesh=mesh_lib.create_mesh([DEVICE] * 4,
+                                                model_parallelism=2))
+    images = np.random.default_rng(13).integers(
+        0, 256, (M11B_PREDICT_BATCH, *plain.cfg.image_hw(), 3),
+        dtype=np.uint8)
+    raw.warmup(M11B_PREDICT_BATCH)
+    split.warmup(M11B_PREDICT_BATCH)
+    raw_ms, want = _host_ms(lambda: raw.predict(images), 3)
+    nms_cuda.launches = 0
+    split_ms, got = _host_ms(lambda: split.predict(images), 3)
+    launches = nms_cuda.launches
+    matched, total = set_match(got, want)
+    _check_output(got, M11B_PREDICT_BATCH, plain.cfg.nms.max_boxes)
+    if launches != 3 * 2 or total == 0 or matched < M11B_BF16_SHARE * total:
+        raise AssertionError(f"(h) split flagship predict: {launches} K1 "
+                             f"launches, matched {matched}/{total}")
+    return {"batch": M11B_PREDICT_BATCH, "mesh": split.mesh.shape,
+            "set_match": [matched, total],
+            "p50_ms": float(np.median(split_ms)),
+            "plain_raw_p50_ms": float(np.median(raw_ms))}, launches
+
+
+def _m11b_memory(cfg: Config, devices: list) -> dict:
+    """Each card's peak memory over one 1024 frame with its rows on
+    ``devices`` (a card each), beside one card's for the unsplit frame."""
+    frame = np.random.default_rng(21).integers(
+        0, 256, (*cfg.image_hw(), 3), dtype=np.uint8)
+    plain = Predictor(cfg, None, device=devices[0])
+    split = Predictor(cfg, plain.detector.model.state_dict(),
+                      spatial_shard=True, mesh=_strips_mesh(devices))
+    peaks = {}
+    for name, pred in (("one_card", plain), ("split", split)):
+        pred.predict(frame)
+        torch.cuda.synchronize()
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+        base = [torch.cuda.memory_allocated(d) for d in devices]
+        pred.predict(frame)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        peaks[name] = [(torch.cuda.max_memory_allocated(d) - b) / 2 ** 20
+                       for d, b in zip(devices, base)]
+    one = peaks["one_card"][0]
+    return {"devices": [str(d) for d in devices],
+            "one_card_peak_mib": one, "split_peak_mib": peaks["split"],
+            "split_over_one_card": [p / one for p in peaks["split"]],
+            "note": "peak allocated above the weights and buffers held "
+                    "before the frame, one warm frame each"}
+
+
+def phase_scaleout_m11b(power_line: str) -> tuple[dict, dict]:
+    """The rest of scale-out on the card: (f) TP 2 at the flagship's full
+    width, (g) the FSDP x TP dry run, (h) ``configs/streaming_1024.json``
+    streamed with each frame's rows in 4 strips of the one card (f32 and
+    bf16) and the flagship's split predict; with four cards visible, (h)'s
+    strips on four cards too and each card's peak memory. Returns the K1
+    and K2 launches by path."""
+    t0 = time.perf_counter()
+    tp_row, k2_tp = _m11b_tp(power_line)
+    dry_row, k2_dry, k1_dry = _m11b_dryrun()
+    cfg = Config.load(STREAMING)
+    pool = _stream_pool(cfg)
+    one_card = [DEVICE] * M11B_STRIPS
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    streams = [_m11b_stream(f32, pool, one_card),
+               _m11b_stream(cfg, pool, one_card)]
+    predict_row, k1_predict = _m11b_predict()
+    k1 = {"scaleout_m11b_stream_f32": streams[0]["nms_launches"],
+          "scaleout_m11b_stream_bf16": streams[1]["nms_launches"],
+          "scaleout_m11b_predict": k1_predict,
+          "scaleout_m11b_dryrun_predict": k1_dry}
+    row = {"phase": "scaleout_m11b", "card": power_line,
+           "tp_f32_flagship": tp_row, "dryrun": dry_row,
+           "stream_1024_one_card": streams, "predict_flagship": predict_row}
+    if torch.cuda.device_count() >= M11B_STRIPS:
+        cards = [torch.device("cuda", i) for i in range(M11B_STRIPS)]
+        torch.cuda.empty_cache()
+        row["stream_1024_four_cards"] = _m11b_stream(cfg, pool, cards)
+        k1["scaleout_m11b_stream_4cards"] = (
+            row["stream_1024_four_cards"]["nms_launches"])
+        row["memory_1024_four_cards"] = _m11b_memory(cfg, cards)
+    k2 = {"scaleout_m11b_tp": k2_tp, "scaleout_m11b_dryrun_steps": k2_dry}
+    emit({**row, "launches": {"nms": k1, "match": k2},
+          "wall_s": time.perf_counter() - t0,
+          "note": "unoptimised eager bring-up reading on " + power_line
+                  + "; ms a frame on the host clock, the strips of one "
+                  "card sharing its stream"})
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3123,6 +3362,9 @@ def main() -> int:
           "ptxas": ptxas})
     if sys.argv[1:] == ["--phase", "scaleout"]:  # that phase alone
         phase_scaleout(power_line)
+        return 0
+    if sys.argv[1:] == ["--phase", "scaleout_m11b"]:  # that phase alone
+        phase_scaleout_m11b(power_line)
         return 0
 
     phase_host_ingest(power_line)
@@ -3173,6 +3415,9 @@ def main() -> int:
         power_line)
     nms_launches_new.update(nms_launches_scaleout)
     match_launches_new.update(match_launches_scaleout)
+    nms_launches_m11b, match_launches_m11b = phase_scaleout_m11b(power_line)
+    nms_launches_new.update(nms_launches_m11b)
+    match_launches_new.update(match_launches_m11b)
 
     emit({"kernels": [{
         "name": "nms", "route": "cuda", "source": "ssd_tpu_torch/csrc/nms.cu",

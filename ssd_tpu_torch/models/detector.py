@@ -40,7 +40,8 @@ from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.constants import MEAN_RGB, STD_RGB
 from ssd_tpu_torch.device import resolve_device
 from ssd_tpu_torch.models.efficientnet import EfficientNetLite
-from ssd_tpu_torch.models.fpn import FPN, RetinaHead, flatten_levels
+from ssd_tpu_torch.models.fpn import (FPN, RetinaHead, flatten_levels,
+                                      flatten_trunks)
 from ssd_tpu_torch.models.layers import (BatchNorm, Conv, GroupNorm,
                                          QuantConv, compute_dtype,
                                          space_to_depth)
@@ -179,10 +180,20 @@ class SSDModel(nn.Module):
         with ``raw_input=False``) -> ``[(cls (N, H, W, K*C), box (N, H, W,
         K*4)), ...]`` in the compute dtype; with ``trunk_only`` the head's
         ``(cls_trunk, box_trunk)``, each ``(N, cells, channels)``."""
+        levels = self.levels(images, raw_input, trunk_only)
+        return flatten_trunks(levels) if trunk_only else levels
+
+    def levels(self, images: torch.Tensor, raw_input: bool = True,
+               trunk_only: bool = False) -> list:
+        """``forward`` level by level: the raw maps, or with ``trunk_only``
+        each level's ``(cls_trunk, box_trunk)`` NCHW, unflattened (a
+        height split gathers them level by level, ``parallel.spatial``)."""
         dtype = compute_dtype(self.cfg.model.compute_dtype)
         feats = self.backbone(self.backbone_input(images, raw_input), dtype)
         pyramid = self.fpn(feats)
-        return self.head.trunks(pyramid) if trunk_only else self.head(pyramid)
+        if trunk_only:
+            return self.head.level_trunks(pyramid)
+        return self.head(pyramid)
 
     def reset_parameters(self, seed: int) -> None:
         """Seeded init in the JAX package's scheme: conv kernels normal with
@@ -340,12 +351,21 @@ def select_for_nms(model: SSDModel, anchors: torch.Tensor, cfg: Config,
     dispatches: the fused head (``head_final_kernel=1``), else the cells
     selection (``nms.select="cells"``), else the flat anchor-wise one. No
     grad mode of its own, so that ``torch.export`` traces it (``export.py``)."""
+    trunk_only = cfg.model.head_final_kernel == 1
+    return select_from_levels(model.levels(images, trunk_only=trunk_only),
+                              model, anchors, cfg)
+
+
+def select_from_levels(levels: list, model: SSDModel, anchors: torch.Tensor,
+                       cfg: Config) -> tuple[torch.Tensor, torch.Tensor]:
+    """``select_for_nms`` from the model's per-level outputs
+    (``SSDModel.levels``, the trunks for the fused head)."""
     if cfg.model.head_final_kernel == 1:
-        cls_trunk, box_trunk = model(images, trunk_only=True)
+        cls_trunk, box_trunk = flatten_trunks(levels)
         return fused_head_candidates(
             cls_trunk, box_trunk, model.head, anchors, cfg.num_classes,
             cfg.anchors.num_anchors_per_cell, cfg.nms)
-    raw = model(images)
+    raw = levels
     if cfg.nms.select == "cells":
         return select_candidates_cells(raw, anchors, cfg.num_classes, cfg.nms)
     logits, deltas = flatten_levels(raw, cfg.num_classes)

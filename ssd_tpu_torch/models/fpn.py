@@ -27,12 +27,18 @@ from torch import nn
 
 from ssd_tpu_torch.constants import CLASS_PRIOR
 from ssd_tpu_torch.models.layers import Conv, ConvBN, QuantConv
+from ssd_tpu_torch.parallel import spatial
 
 
 def upsample_nearest(x: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
     """Nearest upsample of NCHW ``x``. Exactly 2x is a repeat; any other
     size follows ``jax.image.resize(method="nearest")``, whose half-pixel
-    centres are torch's ``"nearest-exact"`` (not ``"nearest"``)."""
+    centres are torch's ``"nearest-exact"`` (not ``"nearest"``). Inside a
+    height split (``parallel.spatial``) ``x`` and the target are strips of
+    rows and the rows are mapped over the whole maps."""
+    strips = spatial.current()
+    if strips is not None:
+        return strips.upsample_nearest(x, target_hw)
     h, w = x.shape[-2:]
     th, tw = target_hw
     if (th, tw) == (2 * h, 2 * w):
@@ -119,16 +125,25 @@ class RetinaHead(nn.Module):
         return [(self.class_net(p).permute(0, 2, 3, 1),
                  self.box_net(p).permute(0, 2, 3, 1)) for p in pyramid]
 
+    def level_trunks(self, pyramid: list) -> list:
+        """The class and box trunks of each level, NCHW."""
+        return [(self.class_net.trunk(p), self.box_net.trunk(p))
+                for p in pyramid]
+
     def trunks(self, pyramid: list) -> tuple[torch.Tensor, torch.Tensor]:
         """The class and box trunks of every level, each ``(N, cells,
         channels)`` with cells in (level, row, col) order (the JAX head's
         ``trunk_only=True`` outputs)."""
-        def cells(t: torch.Tensor) -> torch.Tensor:
-            return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, t.shape[1])
+        return flatten_trunks(self.level_trunks(pyramid))
 
-        return (torch.cat([cells(self.class_net.trunk(p)) for p in pyramid],
-                          1),
-                torch.cat([cells(self.box_net.trunk(p)) for p in pyramid], 1))
+
+def flatten_trunks(levels: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-level NCHW ``(cls, box)`` trunks -> ``RetinaHead.trunks``'s."""
+    def cells(t: torch.Tensor) -> torch.Tensor:
+        return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, t.shape[1])
+
+    return (torch.cat([cells(c) for c, _ in levels], 1),
+            torch.cat([cells(b) for _, b in levels], 1))
 
 
 def flatten_levels(raw: list, num_classes: int):

@@ -32,7 +32,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_EPSILON, BATCH_NORM_MOMENTUM
-from ssd_tpu_torch.parallel.mesh import all_reduce_mean, step_group
+from ssd_tpu_torch.parallel import spatial
+from ssd_tpu_torch.parallel.mesh import all_reduce_mean, local, step_group
+from ssd_tpu_torch.parallel.spatial import same_pad  # noqa: F401
 
 # int8 computes norms, activations and depthwise convs in bf16; its dense
 # convs take the quantized path (``QuantConv``).
@@ -58,24 +60,22 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     return x.reshape(n, h // block, w // block, c * block * block)
 
 
-def same_pad(in_size: int, kernel: int, stride: int) -> tuple[int, int]:
-    """XLA's SAME split along one axis: ``(before, after)``.
-
-    ``total = max((out - 1) * stride + kernel - in, 0)`` with
-    ``out = ceil(in / stride)`` and ``before = total // 2``: a stride-2 3x3
-    conv on an even input pads 0 before and 1 after, where torch's
-    ``padding=1`` would shift every output.
-    """
-    out = -(-in_size // stride)
-    total = max((out - 1) * stride + kernel - in_size, 0)
-    return total // 2, total - total // 2
-
-
 class Conv(nn.Module):
     """``k x k`` conv with SAME padding, like flax ``nn.Conv(padding="SAME")``.
 
     ``weight (out, in / groups, k, k)``, optional ``bias (out,)``.
+
+    Split over the model axis (``parallel.mesh.model_sharded`` sets
+    ``tp``), the weight is this rank's ``out / m`` rows: the conv runs on
+    that shard alone (a grouped conv on its groups' input channels), its
+    block is all-gathered along channels, then the whole bias is added, so
+    that the bias's gradient is whole on every model rank. Inside a height
+    split (``parallel.spatial``) the input is a strip of rows and the SAME
+    padding is the whole image's, the strip's halo rows taken from its
+    neighbours.
     """
+
+    tp = None  # parallel.mesh.TensorParallel of a split weight
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True):
@@ -88,19 +88,33 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv(x, self.weight.to(x.dtype), bias)
+        if self.tp is None:
+            return self._conv(x, self.weight.to(x.dtype), bias)
+        xs, groups = self.tp.channels(self.tp.enter(x), self.groups)
+        y = self.tp.gather(self._conv(xs, local(self.weight).to(x.dtype),
+                                      None, groups))
+        return y if bias is None else y + bias.view(1, -1, 1, 1)
 
     def _conv(self, x: torch.Tensor, weight: torch.Tensor,
-              bias: torch.Tensor | None) -> torch.Tensor:
+              bias: torch.Tensor | None,
+              groups: int | None = None) -> torch.Tensor:
+        groups = self.groups if groups is None else groups
         k = weight.shape[-1]
-        ph = same_pad(x.shape[-2], k, self.stride)
+        strips = spatial.current()
+        if strips is not None:
+            x, ph, _ = strips.halo(x, k, self.stride)
+            if x.shape[-2] == 0:  # no output row in this strip
+                return x.new_empty((x.shape[0], weight.shape[0], 0,
+                                    -(-x.shape[-1] // self.stride)))
+        else:
+            ph = same_pad(x.shape[-2], k, self.stride)
         pw = same_pad(x.shape[-1], k, self.stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             padding = (ph[0], pw[0])
         else:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             padding = 0
-        return F.conv2d(x, weight, bias, self.stride, padding, 1, self.groups)
+        return F.conv2d(x, weight, bias, self.stride, padding, 1, groups)
 
     def reset_parameters(self, generator: torch.Generator,
                          std: float | None = None,
@@ -265,6 +279,8 @@ class GroupNorm(nn.Module):
     * (rsqrt(var + eps) * scale) + bias`` in f32, rounded once to the
     input's dtype. No running statistics: train and eval mode are the same
     function. It keeps only its input for the backward (``_Recomputed``).
+    Inside a height split (``parallel.spatial``) the statistics are the
+    whole map's: the strips' sums, added.
     """
 
     def __init__(self, channels: int, eps: float = BATCH_NORM_EPSILON):
@@ -279,9 +295,16 @@ class GroupNorm(nn.Module):
         n, c = x.shape[:2]
         xf = x.float()
         xg = xf.reshape(n, self.groups, -1)
-        mean = xg.mean(dim=-1)
-        var = torch.maximum(xg.square().mean(dim=-1) - mean.square(),
-                            mean.new_zeros(()))
+        strips = spatial.current()
+        if strips is None:
+            mean = xg.mean(dim=-1)
+            mean_sq = xg.square().mean(dim=-1)
+        else:  # a strip of rows: the whole map's sums
+            sums, count = strips.group_sums(
+                torch.stack([xg.sum(dim=-1), xg.square().sum(dim=-1)]),
+                xg.shape[-1])
+            mean, mean_sq = (sums / count).unbind(0)
+        var = torch.maximum(mean_sq - mean.square(), mean.new_zeros(()))
         size = c // self.groups
         mean = mean.repeat_interleave(size, dim=1)  # (N, C)
         var = var.repeat_interleave(size, dim=1)
@@ -307,8 +330,15 @@ def max_pool_same(x: torch.Tensor, kernel: int = 3,
     """``nn.max_pool(x, (k, k), (s, s), "SAME")`` on NCHW: XLA's SAME split
     (0 before and 1 after for 3/2 on an even input), padded with -inf, then
     an unpadded pool (``padding=1`` would pad both sides and shift every
-    output)."""
-    ph = same_pad(x.shape[-2], kernel, stride)
+    output). Inside a height split the padding is the whole map's
+    (``parallel.spatial``)."""
+    strips = spatial.current()
+    if strips is not None:
+        x, ph, _ = strips.halo(x, kernel, stride)
+        if x.shape[-2] == 0:
+            return x.new_empty((*x.shape[:2], 0, -(-x.shape[-1] // stride)))
+    else:
+        ph = same_pad(x.shape[-2], kernel, stride)
     pw = same_pad(x.shape[-1], kernel, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=-math.inf)
     return F.max_pool2d(x, kernel, stride)
@@ -328,8 +358,11 @@ SCALE_PREFIX = "act_scale_"
 
 def scale_key(x: torch.Tensor) -> str:
     """The activation scale's key for an NCHW input: ``act_scale_{H}x{W}``
-    (the JAX package's name for its NHWC input of the same size)."""
-    return f"{SCALE_PREFIX}{x.shape[-2]}x{x.shape[-1]}"
+    (the JAX package's name for its NHWC input of the same size); a strip
+    of rows takes its whole map's."""
+    strips = spatial.current()
+    h = x.shape[-2] if strips is None else strips.height(x)
+    return f"{SCALE_PREFIX}{h}x{x.shape[-1]}"
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -361,12 +394,19 @@ def im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     """NHWC ``(N, H, W, C)`` -> ``(N, Ho, Wo, k*k*C)``: the ``k x k`` taps of
     each SAME-padded output gathered along channels in ``(dy, dx, c)``
     order. A 1x1 stride-1 conv needs none: ``x`` comes back as it is.
-    (``F.unfold`` has no int8 kernel.)"""
+    (``F.unfold`` has no int8 kernel.) Inside a height split the padding
+    is the whole map's (``parallel.spatial``)."""
     if kernel == 1 and stride == 1:
         return x
-    _, h, w, _ = x.shape
-    ph, pw = same_pad(h, kernel, stride), same_pad(w, kernel, stride)
-    ho, wo = -(-h // stride), -(-w // stride)
+    strips = spatial.current()
+    if strips is not None:  # a strip of rows, the whole map's padding
+        x, ph, rows = strips.halo(x, kernel, stride, dim=1)
+        ho = rows[1] - rows[0]
+    else:
+        ph = same_pad(x.shape[1], kernel, stride)
+        ho = -(-x.shape[1] // stride)
+    w = x.shape[2]
+    pw, wo = same_pad(w, kernel, stride), -(-w // stride)
     xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
     taps = [xp[:, dy:dy + stride * (ho - 1) + 1:stride,
                dx:dx + stride * (wo - 1) + 1:stride]

@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_MOMENTUM, MEAN_RGB, STD_RGB
+from ssd_tpu_torch.parallel import spatial
+from ssd_tpu_torch.parallel.mesh import local
 from ssd_tpu_torch.models.layers import (BatchNorm, ConvBN,
                                          DepthwiseSeparable, GroupNorm,
                                          activation, checkpoint, conv_int8,
@@ -98,7 +100,16 @@ class FoldedS2DConv(nn.Module):
     then widened before the correction, as the JAX package's differentiated
     path does (its conv transpose rule refuses the mixed-precision form).
     Gradients reach ``weight`` through the STD fold and the correction map.
+
+    Split over the model axis (``parallel.mesh.model_sharded`` sets
+    ``tp``), the conv and its correction run on this rank's features and
+    the result is all-gathered along channels. Inside a height split
+    (``parallel.spatial``) the packed strip takes its halo rows from its
+    neighbours and the correction map is the whole image's, sliced to the
+    strip's rows.
     """
+
+    tp = None  # parallel.mesh.TensorParallel of a split weight
 
     def __init__(self, features: int, fold_normalize: bool = False):
         super().__init__()
@@ -118,21 +129,45 @@ class FoldedS2DConv(nn.Module):
         else:  # (N, H, W, 3) raw (or pre-normalized) image
             xs = s2d_pack(x).to(dtype)
         xs = xs.contiguous(memory_format=torch.channels_last)
+        if self.tp is None:
+            return self._folded(xs, self.weight, dtype, packed_in)
+        return self.tp.gather(self._folded(xs, local(self.weight), dtype,
+                                           packed_in))
+
+    def _folded(self, xs: torch.Tensor, weight: torch.Tensor,
+                dtype: torch.dtype, packed_in: bool) -> torch.Tensor:
+        """The conv of ``weight`` (the whole kernel or a model shard) on
+        the packed input, folded as the class docstring says."""
+        xs, padding, rows = _halo3(xs)
         if not self.fold_normalize:
-            return F.conv2d(xs, self.weight.to(dtype), padding=1)
-        wp = (self.weight / self.std48.view(1, 48, 1, 1)).to(dtype)
+            return F.conv2d(xs, weight.to(dtype), padding=padding)
+        wp = (weight / self.std48.view(1, 48, 1, 1)).to(dtype)
         if self.training and dtype != torch.float32:
-            y = F.conv2d(xs, wp, padding=1).float()
+            y = F.conv2d(xs, wp, padding=padding).float()
             wp = wp.float()
         else:
             wp = wp.float()
-            y = F.conv2d(xs.float(), wp, padding=1)
-        ph, pw = xs.shape[-2:]
+            y = F.conv2d(xs.float(), wp, padding=padding)
+        ph, pw = rows[2], xs.shape[-1]
         if packed_in:
             corr = _border_correction(wp, ph, pw, 128.0 - self.mean48)
-            return (y + corr).to(dtype)
+            return (y + corr[:, :, rows[0]:rows[1]]).to(dtype)
         corr = _border_correction(wp, ph, pw, self.mean48)
-        return (y - corr).to(dtype)
+        return (y - corr[:, :, rows[0]:rows[1]]).to(dtype)
+
+
+def _halo3(xs: torch.Tensor) -> tuple[torch.Tensor, object, tuple]:
+    """The stem's packed input for its 3x3 stride-1 SAME conv -> ``(input,
+    conv padding, (o0, o1, height))``: whole, the input as it is and
+    padding 1; a strip of rows (``parallel.spatial``), its rows with their
+    halo, padded along H as the whole map is, and the width padding
+    alone."""
+    strips = spatial.current()
+    if strips is None:
+        h = xs.shape[-2]
+        return xs, 1, (0, h, h)
+    xs, pads, rows = strips.halo(xs, 3, 1)
+    return F.pad(xs, (0, 0, *pads)), (0, 1), rows
 
 
 class Int8FoldedS2DConv(FoldedS2DConv):
@@ -176,10 +211,15 @@ class Int8FoldedS2DConv(FoldedS2DConv):
                              f"packed s8 feed, got {x.dtype}")
         wp = self.weight * self.inv_std48.view(1, 48, 1, 1)
         k_q, k_scale = quantize_weight(wp)
+        strips = spatial.current()
+        lo, hi, h = 0, xs.shape[1], xs.shape[1]
+        if strips is not None:  # a strip of rows: its rows of the map
+            _, bounds, h = strips.bounds(xs, dim=1)
+            lo, hi = bounds[strips.index]
         y = conv_int8(xs, k_q, 1).float() * k_scale
         corr = _border_correction(k_q.float() * k_scale.view(-1, 1, 1, 1),
-                                  xs.shape[1], xs.shape[2],
-                                  128.0 - self.mean48)
+                                  h, xs.shape[2], 128.0 - self.mean48)
+        corr = corr[:, :, lo:hi]
         return (y + corr.permute(0, 2, 3, 1)).to(torch.bfloat16).permute(
             0, 3, 1, 2)
 

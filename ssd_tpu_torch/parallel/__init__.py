@@ -3,5 +3,6 @@
 ``ssd_tpu_torch.train_step``."""
 
 from ssd_tpu_torch.parallel.mesh import (  # noqa: F401
-    DATA_AXIS, MODEL_AXIS, Mesh, create_mesh, fsdp_sharded,
-    initialize_distributed, local_rows, model_sharded, shard_batch)
+    DATA_AXIS, MODEL_AXIS, Mesh, create_mesh, data_index_and_size,
+    fsdp_sharded, initialize_distributed, local_rows, model_sharded,
+    shard_batch)

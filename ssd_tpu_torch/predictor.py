@@ -36,10 +36,14 @@ and it issues no device work.
 data-parallel serving over every visible card (``Predictor(mesh=True)``).
 
 Data-parallel serving (``mesh``, the JAX package's meshed predict): a
-replica of the model on each of the mesh's devices, batch buckets rounded
-up to a multiple of the device count, and each replica predicting its
-contiguous block of the bucket's rows (its own K1 launch on its own device
-and stream); the rows come back in order, the same as one device's.
+replica of the model on each data row of the mesh (its first device),
+batch buckets rounded up to a multiple of the data width, and each replica
+predicting its contiguous block of the bucket's rows (its own K1 launch on
+its own device and stream); the rows come back in order, the same as one
+device's. With ``spatial_shard`` each image's height is split besides over
+the row's ``model`` devices (``parallel/spatial.py``: the halo exchange
+written out, the heads' maps gathered on the row's first device, where K1
+runs once a predict), on the raw uint8 feed.
 """
 
 
@@ -75,6 +79,33 @@ def resize_image(image: np.ndarray, size_hw) -> np.ndarray:
     return native.resize(np.ascontiguousarray(image), th, tw)
 
 
+def check_spatial(cfg: Config, mesh: "mesh_lib.Mesh",
+                  what: str = "image") -> None:
+    """The height split's refusals: a height the model axis does not
+    divide (the JAX package's message), and strips the stem cannot pack
+    (dense4 packs 4 rows, ``stem_space_to_depth`` 2)."""
+    h, m = cfg.image_hw()[0], mesh.shape[mesh_lib.MODEL_AXIS]
+    if h % m:
+        raise ValueError(f"{what} height {h} not divisible by model axis "
+                         f"{m}")
+    block = (4 if cfg.model.stem_schedule == "dense4"
+             else 2 if cfg.model.stem_space_to_depth else 1)
+    if (h // m) % block:
+        raise ValueError(f"{what} height {h} over model axis {m} leaves "
+                         f"strips of {h // m} rows, which the stem's "
+                         f"{block}-row packing does not divide")
+
+
+def spatial_replicas(detector: Detector, mesh: "mesh_lib.Mesh") -> list:
+    """One ``parallel.spatial.SpatialDetector`` a data row of ``mesh``,
+    its strips on the row's devices, over one copy of the weights a
+    device."""
+    from ssd_tpu_torch.parallel.spatial import SpatialDetector
+    devices = list(dict.fromkeys(d for row in mesh.rows for d in row))
+    on = dict(zip(devices, mesh_lib.replicate(detector, mesh, devices)))
+    return [SpatialDetector([on[d] for d in row], row) for row in mesh.rows]
+
+
 def letterbox_image(image: np.ndarray,
                     size_hw) -> tuple[np.ndarray, float, float]:
     """Aspect-preserving resize onto a zero canvas (padding at the bottom and
@@ -104,8 +135,9 @@ class Predictor:
     ``mesh``: ``True`` (every visible card; ``[device]`` when one is
     given) or a ``parallel.mesh.Mesh`` for data-parallel serving (the
     module docstring); the replicas copy the weights once, here.
-    ``spatial_shard`` (height-sharded images) needs a mesh and is not
-    ported (M11b).
+    ``spatial_shard``: split each image's height over the mesh's ``model``
+    axis besides (the module docstring); it needs a mesh and a height the
+    model axis divides, and turns the packed feed off.
     """
 
     def __init__(self, cfg: Config, state: dict | None,
@@ -113,29 +145,36 @@ class Predictor:
                  preserve_aspect: bool = False, device=None,
                  packed_ingest: bool | None = None, mesh=None,
                  spatial_shard: bool = False):
-        if spatial_shard:
-            if mesh is None:
-                raise ValueError("spatial_shard requires a mesh")
-            raise NotImplementedError(f"spatial_shard {mesh_lib.M11B}")
+        if spatial_shard and mesh is None:
+            raise ValueError("spatial_shard requires a mesh")
         if mesh is True:
             mesh = mesh_lib.create_mesh(None if device is None else [device])
         elif mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
             raise TypeError(f"mesh must be True or a parallel.mesh.Mesh, "
                             f"not {type(mesh).__name__}")
+        if spatial_shard:
+            check_spatial(cfg, mesh)
         self.cfg = cfg
         self.mesh = mesh
+        self.spatial_shard = spatial_shard
         self.detector = Detector(cfg, state, device=(
             device if mesh is None else mesh.device))
         self.device = self.detector.device
-        self.replicas = ([self.detector] if mesh is None
-                         else mesh_lib.replicate(self.detector, mesh))
+        if mesh is None:
+            self.replicas = [self.detector]
+        elif spatial_shard:
+            self.replicas = spatial_replicas(self.detector, mesh)
+        else:
+            self.replicas = mesh_lib.replicate(self.detector, mesh)
         self.label_map = label_map
         self.preserve_aspect = preserve_aspect
         dense4 = cfg.model.stem_schedule == "dense4"
         if packed_ingest is None:
-            packed_ingest = dense4
+            packed_ingest = dense4 and not spatial_shard
         elif packed_ingest and not dense4:
             raise ValueError("the packed feed is the dense4 stem's")
+        elif packed_ingest and spatial_shard:
+            raise ValueError("the packed feed is off under spatial_shard")
         self._packed = bool(packed_ingest)
         # pinned staging on the card; False copies from pageable memory
         # (kept to measure the two against each other)

@@ -34,8 +34,7 @@ from torch.profiler import record_function
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.data import native
-from ssd_tpu_torch.parallel.mesh import M11B
-from ssd_tpu_torch.predictor import Predictor
+from ssd_tpu_torch.predictor import Predictor, check_spatial
 
 PUSH_SPAN = "streaming.push"  # a push's host work: resize and enqueue
 
@@ -46,20 +45,21 @@ class StreamingDetector:
     (or ``True``) for the predictor's data-parallel replicas, as the JAX
     package takes a mesh alone: a frame is bucketed to one row a replica
     and every replica runs on its block, the others on padding rows, as
-    JAX's meshed bucket does. ``spatial_shard`` (the JAX package's
-    height-sharded frames, GSPMD's halo exchange) raises: ROADMAP.md
-    M11b."""
+    JAX's meshed bucket does. ``spatial_shard`` with a mesh: each frame's
+    height split over the mesh's ``model`` axis (``parallel/spatial.py``),
+    on the raw uint8 feed; without a mesh it is ignored, as the JAX
+    package ignores it."""
 
     def __init__(self, cfg: Config, state: dict | None, depth: int = 2,
                  mesh=None, spatial_shard: bool = False, device=None):
-        if spatial_shard:
-            raise NotImplementedError(
-                "spatial_shard= (height-sharded frames with the GSPMD halo "
-                f"exchange) {M11B}")
         if depth < 1:
             raise ValueError(f"depth must be at least 1, got {depth}")
+        spatial_shard = spatial_shard and mesh is not None
+        if spatial_shard and mesh is not True:
+            check_spatial(cfg, mesh, "frame")
         self.cfg = cfg
-        self.predictor = Predictor(cfg, state, device=device, mesh=mesh)
+        self.predictor = Predictor(cfg, state, device=device, mesh=mesh,
+                                   spatial_shard=spatial_shard)
         self.detector = self.predictor.detector
         self.device = self.predictor.device
         self.depth = depth

@@ -19,7 +19,10 @@ Under ``torchrun`` the step is data-parallel over the ranks (the JAX
 tool's 1-D data mesh): ``--batch`` is the global batch, each rank steps
 on its own ``batch / N`` rows of the one synthetic batch
 (``train.param_sharding``, settable with ``--set``, picks replicated or
-FSDP state), and rank 0 prints the global img/s.
+FSDP state), and rank 0 prints the global img/s. ``--model-parallelism
+M`` splits the convs' channels over M ranks besides
+(``parallel.mesh.model_sharded``): the ranks of a model group step on the
+same rows, ``batch / (N / M)`` of them.
 """
 
 from __future__ import annotations
@@ -68,27 +71,30 @@ def synthetic_batch(cfg: Config, batch: int, seed: int = 0) -> dict:
 
 def run(cfg: Config, batch: int, steps: int, warmup: int, device=None,
         profile: str = "", backend: str | None = None,
-        save: str = "") -> dict:
+        save: str = "", model_parallelism: int = 1) -> dict:
     """The protocol of the module docstring; ``save``: a file for the
     final state (whole tensors: the model's state dict and the EMA) and
     each step's metrics, written by rank 0 (a collective under FSDP), by
     every rank when the name holds ``{rank}``."""
-    mesh = (mesh_lib.create_mesh()
+    mesh = (mesh_lib.create_mesh(model_parallelism=model_parallelism)
             if mesh_lib.initialize_distributed(device, backend=backend)
             else None)
     rank, world = mesh_lib.rank_and_world()
-    if batch % world:
-        raise ValueError(f"--batch {batch} must divide by the {world} ranks")
+    data_index, data_size = mesh_lib.data_index_and_size(mesh)
+    if batch % data_size:
+        raise ValueError(f"--batch {batch} must divide by the {data_size} "
+                         "data ranks")
     det = Detector(cfg, device=device if mesh is None else mesh.device)
     device = det.device
+    split = mesh_lib.model_sharded(mesh, det.model) if mesh else []
     if mesh is not None and cfg.train.param_sharding == "fsdp":
-        mesh_lib.fsdp_sharded(mesh, det.model)
+        mesh_lib.fsdp_sharded(mesh, det.model, base=split or None)
     optimizer = Optimizer(cfg)
     state = create_train_state(det, optimizer, cfg.train.ema_decay)
     step = make_train_step(det, optimizer, cfg.train.ema_decay,
                            cfg.train.grad_accum_steps, mesh=mesh)
-    local = batch // world
-    rows = {k: v[rank * local:(rank + 1) * local]
+    local = batch // data_size
+    rows = {k: v[data_index * local:(data_index + 1) * local]
             for k, v in synthetic_batch(cfg, batch).items()}
     dev_batch = DeviceFeed(device)(rows)
     sync(device)
@@ -134,6 +140,8 @@ def run(cfg: Config, batch: int, steps: int, warmup: int, device=None,
                         "world_size": world, "match_launches": launches},
                        save.format(rank=rank))
     return {"batch": batch, "world_size": world,
+            "model_parallelism": model_parallelism,
+            "model_split_leaves": len(split),
             "param_sharding": cfg.train.param_sharding if mesh else None,
             "image_size": cfg.image_size,
             "dtype": cfg.model.compute_dtype,
@@ -165,6 +173,10 @@ def main(argv=None) -> dict:
                    help="process group backend under torchrun (default: "
                         "NCCL on the card, gloo on the CPU; gloo on the "
                         "card runs several ranks on one card)")
+    p.add_argument("--model-parallelism", type=int, default=1, metavar="M",
+                   help="split the convs' channels over M ranks (channel "
+                        "tensor parallelism; the rest of the ranks are "
+                        "the data axis)")
     p.add_argument("--save", default="", metavar="FILE",
                    help="write the final state and each step's metrics "
                         "(every step's when --steps 1); a FILE holding "
@@ -177,7 +189,7 @@ def main(argv=None) -> dict:
         result = {"config": args.config,
                   **run(cfg, args.batch, args.steps, args.warmup,
                         args.device, args.profile, args.backend,
-                        args.save)}
+                        args.save, args.model_parallelism)}
         if mesh_lib.rank_and_world()[0] == 0:
             print(json.dumps(result))
     finally:

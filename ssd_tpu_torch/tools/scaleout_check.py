@@ -4,12 +4,15 @@ rows.
     python -m ssd_tpu_torch.tools.scaleout_check \\
         --config configs/coco_mobilenet_640_flagship.json --nproc 4 \\
         --batch 64 [--backend nccl|gloo] [--set model.compute_dtype=float32] \\
-        [--set train.param_sharding=fsdp] [--device cpu]
+        [--set train.param_sharding=fsdp] [--model-parallelism M] \\
+        [--device cpu]
 
 Starts ``torchrun --standalone --nproc-per-node N`` of
 ``tools/bench_train.py``: each rank steps on its ``batch / N`` rows of
 the seeded synthetic batch (a first step, a warm-up step and one timed
-step: three steps) and saves its state and metrics. Then the same three
+step: three steps) and saves its state and metrics; with
+``--model-parallelism M`` the convs' channels are split over M ranks and
+the ranks of a model group step on the same ``batch / (N / M)`` rows. Then the same three
 steps run in this process on all ``batch`` rows, one device. Prints one
 JSON line: whether the ranks' states are bit-identical, their distance
 from the one-process state (bit-equal share, largest absolute and
@@ -69,7 +72,7 @@ def _flat(saved: dict) -> dict:
 
 def run(config: str, nproc: int, batch: int, backend: str | None = None,
         overrides: list | None = None, device=None,
-        timeout: float = 900) -> dict:
+        timeout: float = 900, model_parallelism: int = 1) -> dict:
     """The check of the module docstring -> its JSON object (``ok`` says
     whether it held). ``config``: a JSON file; ``overrides``:
     ``KEY=VALUE`` strings as bench_train's ``--set`` takes them."""
@@ -90,6 +93,8 @@ def run(config: str, nproc: int, batch: int, backend: str | None = None,
             cmd += ["--backend", backend]
         if device:
             cmd += ["--device", str(device)]
+        if model_parallelism != 1:
+            cmd += ["--model-parallelism", str(model_parallelism)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=timeout,
@@ -132,6 +137,8 @@ def run(config: str, nproc: int, batch: int, backend: str | None = None,
             "device": line["device"], "batch": batch,
             "dtype": cfg.model.compute_dtype,
             "param_sharding": line["param_sharding"], "steps": 3,
+            "model_parallelism": model_parallelism,
+            "model_split_leaves": line["model_split_leaves"],
             "ranks_bit_identical": identical, "vs_one_process": diff,
             "metric_rel_diff": worst, "bars": BARS if f32 else None,
             "match_launches": launches, "step_ms": line["step_ms"],
@@ -152,9 +159,10 @@ def main(argv=None) -> dict:
     p.add_argument("--set", action="append", default=[], metavar="KEY=VAL")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
+    p.add_argument("--model-parallelism", type=int, default=1, metavar="M")
     args = p.parse_args(argv)
     result = run(args.config, args.nproc, args.batch, args.backend, args.set,
-                 args.device)
+                 args.device, model_parallelism=args.model_parallelism)
     print(json.dumps(result), flush=True)
     if not result["ok"]:
         sys.exit(1)

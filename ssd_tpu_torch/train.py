@@ -210,13 +210,15 @@ def find_label_map(train_file_pattern: str) -> dict | None:
 
 def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
           max_steps: int | None = None, device=None,
-          profile_steps: int = 0) -> dict:
+          profile_steps: int = 0, model_parallelism: int = 1) -> dict:
     """Runs the loop to ``max_steps`` (or ``train.num_steps``); returns the
     last step's metrics as floats. ``batches``: an iterator of host batches
     with ``state()``/``restore()`` (under a process group, of this rank's
     rows); ``None`` reads the tfrecords. Under ``torchrun`` (or a process
     group already started) the loop is data-parallel over the ranks (the
-    module docstring)."""
+    module docstring); ``model_parallelism`` > 1 (under a group) splits
+    the convs' channels over that many ranks besides
+    (``parallel.mesh.model_sharded``), and the rows over the data index."""
     t = cfg.train
     accum = max(t.grad_accum_steps, 1)
     if t.batch_size % accum:
@@ -225,20 +227,25 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
     if t.param_sharding not in ("replicated", "fsdp"):
         raise ValueError(
             f"unknown train.param_sharding: {t.param_sharding!r}")
-    mesh = (mesh_lib.create_mesh()
+    mesh = (mesh_lib.create_mesh(model_parallelism=model_parallelism)
             if mesh_lib.initialize_distributed(device) else None)
+    if mesh is None and model_parallelism != 1:
+        raise ValueError("model_parallelism > 1 needs a process group "
+                         "(torchrun)")
     rank, world = mesh_lib.rank_and_world()
-    if t.batch_size % world:
+    # the ranks of one model group read the same rows
+    data_index, data_size = mesh_lib.data_index_and_size(mesh)
+    if t.batch_size % data_size:
         raise ValueError(f"train.batch_size ({t.batch_size}) must divide by "
-                         f"the data axis ({world})")
-    if accum > 1 and (t.batch_size // accum) % world:
+                         f"the data axis ({data_size})")
+    if accum > 1 and (t.batch_size // accum) % data_size:
         # JAX's refusal (its SPMD depthwise backward miscomputes a
         # microbatch the data axis does not divide); here it also keeps
         # each rank's stride over its own rows equal to JAX's over the
         # global batch
         raise ValueError(
             f"microbatch ({t.batch_size}//{accum}) must divide by "
-            f"the data axis ({world}) for grad accumulation")
+            f"the data axis ({data_size}) for grad accumulation")
     detector = Detector(cfg, device=device if mesh is None else mesh.device)
     device = detector.device
     # the teacher fails fast, before any data or checkpoint is touched
@@ -249,13 +256,17 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
                              keep=t.keep_checkpoints)
     if batches is None:
         batches = Pipeline(cfg.data.train_file_pattern, cfg,
-                           is_training=True, batch_size=t.batch_size // world,
-                           host_id=rank, num_hosts=world, seed=t.seed)
+                           is_training=True,
+                           batch_size=t.batch_size // data_size,
+                           host_id=data_index, num_hosts=data_size,
+                           seed=t.seed)
 
     detector.model.reset_parameters(t.seed)
+    # before the state: its moments and EMA are made beside the shards
+    split = (mesh_lib.model_sharded(mesh, detector.model)
+             if mesh is not None else [])
     if mesh is not None and t.param_sharding == "fsdp":
-        # before the state: its moments and EMA are made sharded
-        mesh_lib.fsdp_sharded(mesh, detector.model)
+        mesh_lib.fsdp_sharded(mesh, detector.model, base=split or None)
     state = create_train_state(detector, optimizer, t.ema_decay)
     latest = ckpt.latest_step() if resume else None
     if latest is not None:

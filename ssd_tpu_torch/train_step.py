@@ -28,7 +28,12 @@ gradient is added once to the sum, and the metrics are the global ones,
 the same on every rank, as is every update. The state is replicated, or
 sharded by FSDP (``parallel.mesh.fsdp_sharded``) before
 ``create_train_state``, so that the optimizer state and the EMA are
-``DTensor`` shards beside their parameters.
+``DTensor`` shards beside their parameters. A mesh with a model axis
+(``parallel.mesh.model_sharded``) splits convs' output channels over the
+ranks of a model group, which read the same rows: the data collectives
+run over the data sub-group, a split leaf's gradient is summed over the
+data ranks alone, and the L2 term and ``grad_norm`` count a split leaf's
+shards once each and a whole leaf once.
 """
 
 from __future__ import annotations
@@ -41,7 +46,6 @@ import torch
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.models.detector import Detector
-from ssd_tpu_torch.ops.losses import l2_regularization
 from ssd_tpu_torch.parallel import mesh as mesh_lib
 
 _F32 = np.float32
@@ -101,13 +105,25 @@ def make_lr_schedule(cfg: Config) -> Callable[[int], np.float32]:
     return schedule
 
 
+def _like(sharded: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """``block`` (a local block) as a tensor placed like ``sharded``."""
+    if not mesh_lib.is_sharded(sharded):
+        return block
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block, sharded.device_mesh, sharded.placements,
+                              run_check=False, shape=sharded.shape,
+                              stride=sharded.stride())
+
+
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    return t.float().square().sum()
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over every tensor, in f32."""
-    total = None
-    for g in tensors:
-        sq = g.float().square().sum()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    """``sqrt(sum of squares)`` over every whole tensor, in f32: a sharded
+    tensor's shards summed over the ranks that split it, a replicated one
+    once (``parallel.mesh.sharded_sum``; a collective under a mesh)."""
+    return torch.sqrt(mesh_lib.sharded_sum(tensors, _square_sum))
 
 
 class Optimizer:
@@ -140,8 +156,9 @@ class Optimizer:
         if self.clip > 0:
             norm = global_norm(grads.values())
             keep = norm < self.clip
-            grads = {k: torch.where(keep, g, g / norm * self.clip)
-                     for k, g in grads.items()}
+            grads = {k: _like(g, torch.where(
+                keep, mesh_lib.local(g), mesh_lib.local(g) / norm * self.clip))
+                for k, g in grads.items()}
         count = opt_state["count"]
         step_size = float(-self.lr(count))
         if self.kind == "momentum":
@@ -255,8 +272,7 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
             grads = {k: g * inv for k, g in grads.items()}
             msum = {k: v * inv for k, v in msum.items()}
         _add_l2(grads, params, msum, weight_decay)
-        msum["grad_norm"] = mesh_lib.full_tensor(
-            global_norm(grads.values()).detach())
+        msum["grad_norm"] = global_norm(grads.values()).detach()
         optimizer.update(grads, state.opt_state, params)
         for p in params.values():
             p.grad = None
@@ -271,10 +287,16 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
 
 
 def _reduce(grads: dict, metrics: dict, group) -> None:
-    """Sums the replicated gradients and each rank's share of the metrics
-    over the ranks, in place (FSDP's sharded gradients are already
-    summed). ``num_positives`` is global already."""
-    plain = [g for g in grads.values() if not mesh_lib.is_sharded(g)]
+    """Sums the gradients and each rank's share of the metrics over the
+    data ranks, in place: the replicated gradients and a model shard's
+    (its local block); FSDP's, sharded over ``data``, arrive summed.
+    ``num_positives`` is global already."""
+    plain = []
+    for g in grads.values():
+        if not mesh_lib.is_sharded(g):
+            plain.append(g)
+        elif mesh_lib.DATA_AXIS not in g.device_mesh.mesh_dim_names:
+            plain.append(g.to_local())
     shares = [k for k in _SUMMED if k in metrics]
     summed = torch.stack([metrics[k] for k in shares])
     mesh_lib.all_reduce_(plain + [summed], group)
@@ -285,17 +307,18 @@ def _add_l2(grads: dict, params: dict, metrics: dict,
             weight_decay: float) -> None:
     """The step's L2, once, after the backward (and a data-parallel
     step's sum over the ranks): its gradient ``weight_decay * w`` on each
-    kernel (``losses.l2_regularization``'s leaves; an FSDP state's
-    shard), its value (a collective under FSDP) in the loss and the
-    metrics. One path for every step, so that a step at world size 1 is
-    the one-device step bit for bit: through autograd the L2 term would
+    kernel (``losses.l2_regularization``'s leaves; a sharded state's
+    shard), its value as ``losses.l2_regularization`` computes it (over
+    the shards, a collective under a mesh) in the loss and the metrics.
+    One path for every step, so that a step at world size 1 is the
+    one-device step bit for bit: through autograd the L2 term would
     join a head weight's gradient among its pyramid levels' terms, in
     another order than after them."""
     with torch.no_grad():
+        kernels = [p for p in params.values() if p.dim() >= 2]
         for k, p in params.items():
             if p.dim() >= 2:
                 grads[k] = grads[k] + p * weight_decay
-        reg = mesh_lib.full_tensor(
-            l2_regularization(params.values(), weight_decay))
+        reg = 0.5 * weight_decay * mesh_lib.sharded_sum(kernels, _square_sum)
     metrics["loss"] = metrics["loss"] + reg
     metrics["regularization_loss"] = reg

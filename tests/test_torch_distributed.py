@@ -621,8 +621,10 @@ def test_meshed_predictor_is_the_plain_one():
     2, detections bit-equal to the plain predictor's (an even batch, an
     odd one and one image), and within the golden set rule of JAX's
     ``Predictor(mesh=create_mesh(jax.devices()[:2]))``; the two
-    ``spatial_shard`` refusals; ``serve --mesh`` dispatches batch by
-    batch (``scan_depth`` 1)."""
+    ``spatial_shard`` refusals (JAX's messages) and, on a mesh whose model
+    axis divides the height, a split predict equal to the plain one on the
+    same raw uint8 feed at ``tests/test_spatial.py``'s bars;
+    ``serve --mesh`` dispatches batch by batch (``scan_depth`` 1)."""
     import jax
 
     from ssd_tpu.export import load_inference_artifact
@@ -663,8 +665,19 @@ def test_meshed_predictor_is_the_plain_one():
 
         with pytest.raises(ValueError, match="spatial_shard requires a mesh"):
             Predictor(cfg, state, device="cpu", spatial_shard=True)
-        with pytest.raises(NotImplementedError, match="M11b"):
-            Predictor(cfg, state, mesh=mesh, spatial_shard=True)
+        odd = mesh_lib.create_mesh(["cpu"] * 3, model_parallelism=3)
+        with pytest.raises(ValueError, match=f"image height {cfg.image_size} "
+                                             "not divisible by model axis 3"):
+            Predictor(cfg, state, mesh=odd, spatial_shard=True)
+        split = Predictor(cfg, state, spatial_shard=True, mesh=(
+            mesh_lib.create_mesh(["cpu"] * 4, model_parallelism=2)))
+        assert split._bucket_for(3) == 4 and not split._packed
+        raw = Predictor(cfg, state, device="cpu", packed_ingest=False)
+        a, b = raw.predict(images[:4]), split.predict(images[:4])
+        np.testing.assert_array_equal(a["num_boxes"], b["num_boxes"])
+        np.testing.assert_array_equal(a["labels"], b["labels"])
+        np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-5)
+        np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-5)
         server, _ = serve.build(["--export", sanity.SANITY_NPZ, "--device",
                                  "cpu", "--mesh", "--scan-depth", "4",
                                  "--port", "0", "--warmup-batches", ""])

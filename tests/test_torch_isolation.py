@@ -38,7 +38,7 @@ for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
              "tools.train_memory", "tiling", "tta", "ops.wbf",
              "eval.__main__", "streaming", "export",
              "tools.bench_streaming", "parallel", "parallel.mesh",
-             "tools.scaleout_check"):
+             "tools.scaleout_check", "parallel.spatial", "tools.dryrun"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
@@ -64,6 +64,9 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Detector(cfg)
     Predictor(cfg, None, device="cpu")  # the explicit CPU path builds
+    from ssd_tpu_torch.tools import dryrun
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.entry()
     reference = Config.load(os.path.join(ROOT, "configs",
                                          "coco_mobilenet_640.json"))
     assert reference.model.stem_schedule == "reference"

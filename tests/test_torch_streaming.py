@@ -109,15 +109,23 @@ def test_streaming_matches_jax(streams, depth):
 
 
 def test_mesh_and_spatial_shard_raise():
-    """``spatial_shard`` raises, naming M11b; ``mesh`` is taken as JAX
-    takes it alone (a mesh of this process's devices), and anything else
-    given as a mesh raises."""
+    """``spatial_shard`` without a mesh is ignored, as the JAX package
+    ignores it; with a mesh a frame height the model axis does not divide
+    raises with JAX's message, and a dividing one streams; ``mesh`` is
+    taken as JAX takes it alone (a mesh of this process's devices), and
+    anything else given as a mesh raises."""
     from ssd_tpu_torch.parallel import create_mesh
     cfg = Config.from_dict(model_dict("reference"))
-    for kwargs in ({}, {"mesh": create_mesh(["cpu"])}):
-        with pytest.raises(NotImplementedError, match="M11b"):
-            StreamingDetector(cfg, None, device="cpu", spatial_shard=True,
-                              **kwargs)
+    alone = StreamingDetector(cfg, None, device="cpu", spatial_shard=True)
+    assert not alone.predictor.spatial_shard and alone.packed is False
+    with pytest.raises(ValueError, match="frame height 64 not divisible by "
+                                         "model axis 3"):
+        StreamingDetector(cfg, None, spatial_shard=True,
+                          mesh=create_mesh(["cpu"] * 3, model_parallelism=3))
+    split = StreamingDetector(cfg, None, spatial_shard=True,
+                              mesh=create_mesh(["cpu"] * 4,
+                                               model_parallelism=4))
+    assert split.predictor.spatial_shard and len(split.predictor.replicas) == 1
     with pytest.raises(TypeError, match="mesh"):
         StreamingDetector(cfg, None, device="cpu", mesh=object())
     meshed = StreamingDetector(cfg, None, mesh=create_mesh(["cpu"]))
