@@ -154,7 +154,33 @@ any failure raises:
    apart in examples whose colour jitter ran); the pipeline timed alone at
    each scale with 8 workers; per-scale step p50, the wait for data, img/s
    and peak memory;
-10. scaleout: the flagship over a process group on the one card: (a) the
+10. tools_m12: the rest of the tools and the demo, each through its entry
+    point, their K1 and K2 launches counted: ``tools/summarize.py`` on the
+    flagship at b32 (serve and train: FLOPs by class, bytes, the H100
+    roofline) beside the same predict's device ms; ``tools/
+    analyze_anchors.py`` on the flagship at 640 over 64 seeded 80-class
+    crowded scenes written as a tfrecord, K2 once a batch, the report
+    equal to the CPU plain matcher's; ``tools/crowded_validation.py`` at
+    its full width (256 px, x0.5, FPN 64, 40 classes) trained 100 steps
+    from its tfrecords (512 train scenes, one step profiled), then its 24
+    variants over 64 val scenes: K1 once a batch on each of the 21 hard
+    rows and never on the 3 Soft-NMS rows, each hard row's detections of
+    4 images equal to the CPU plain version's on the same raw maps under
+    the golden set rule; ``utils/trace_tools.py``'s tables over that
+    run's trace within 1% of ``utils/profiling.summarize``'s device ms on
+    the same window, K2's row counting the window's launch, and its
+    ``tb/`` events equal to its ``metrics.jsonl`` (the same for
+    train_pipeline's run, in its line); ``tools/tiled_validation.py`` on
+    those weights, 4 scenes at 1024 px with the ablations;
+    ``tools/calibration_study.py``'s dense4 model trained 100 steps, bf16
+    and one int8 regime (8 train images, absmax); ``tools/
+    make_bench_artifact.py`` 200 steps from ``--seed 0`` (loss,
+    ``sanity_map``); ``tools/import_tf.py`` on the committed TF1
+    checkpoint ``assets/tf_ckpt_v1``, served on the card equal to the
+    CPU's predict under the golden set rule; ``python -m
+    ssd_tpu_torch.demo --selftest``, its PNG written with one K1 launch.
+    ``--phase tools_m12`` runs it alone;
+11. scaleout: the flagship over a process group on the one card: (a) the
     data-parallel step over NCCL at world size 1 (global batch norm,
     normalizers and gradient sum: identities there), one warm-up and 4
     steps held bit-equal to the plain step from the same seeded state on
@@ -186,7 +212,7 @@ any failure raises:
     (2, 2) mesh of the card at b8; with four cards visible, (h)'s bf16
     stream on four cards and each card's peak memory over a 1024 frame
     against one card's. ``--phase scaleout_m11b`` runs it alone;
-11. the kernels line, then the card's ``nvidia-smi`` line, then the
+12. the kernels line, then the card's ``nvidia-smi`` line, then the
     result.
 
 Times are CUDA-event times after warm-up, or host times around work that
@@ -201,6 +227,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import shutil
@@ -209,6 +236,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -253,6 +281,11 @@ from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
 from ssd_tpu_torch.tta import TTAPredictor, fuse_flip_batch
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
+# the H100 SXM data sheet's HBM rate and f32, dense bf16 and int8 peaks: one
+# copy, the cost summary's
+from ssd_tpu_torch.tools.summarize import (BF16_TENSOR_FLOP_PER_S,
+                                           F32_FLOP_PER_S, HBM_BYTES_PER_S,
+                                           INT8_TENSOR_OP_PER_S)
 from ssd_tpu_torch.train import (BEST_NAME, EXPORT_NAME, PROFILE_START,
                                  DeviceFeed, evaluate, train)
 from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
@@ -302,12 +335,6 @@ GRAD_NORM_RTOL = 2e-3  # step-0 gradient norm (train_sanity's bar)
 DET_KEYS = ("boxes", "scores", "labels", "num_boxes")
 DEVICE = torch.device("cuda")
 
-# H100 SXM data sheet: HBM rate, f32 (non-tensor-core) peak and the dense
-# bf16 tensor-core peak.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_TENSOR_FLOP_PER_S = 989e12
-INT8_TENSOR_OP_PER_S = 1979e12
 IOU_FLOPS = 12  # 4 min/max, 3 sub, 2 clamp, 1 mul, 1 add, 1 div
 # matching: the IoU, the union's floor, and the compare into each maximum
 MATCH_FLOPS = 13
@@ -324,6 +351,9 @@ EVAL_MAP_BAR = 1e-3
 # a staging buffer's wait for its last upload, within a step or a predict:
 # with the metrics read back every step, that upload has long finished
 STAGING_WAIT_BAR_MS = 1.0
+# what an earlier phase measured that a later one reads: each serve's device
+# ms a batch by phase (phase_serve; tools_m12 reads the flagship's)
+MEASURED: dict = {}
 
 
 def emit(obj: dict) -> None:
@@ -848,6 +878,7 @@ def phase_serve(phase: str, config: str, power_line: str,
         extra.update(int8_checks(pred, cfg, batches, feed, power_line))
     extra["host_attribution"] = host_attribution(pred, batches[0])
     p50 = float(np.median(batch_ms))
+    MEASURED[phase] = fwd + sel + post
     emit({"phase": phase, "config": os.path.relpath(config, ROOT),
           "backbone": cfg.model.backbone, "norm": cfg.model.norm,
           "stem_schedule": cfg.model.stem_schedule,
@@ -2245,6 +2276,9 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
                                  f"{pageable}, staging waits {staging_ms} "
                                  f"ms, device ops {prof['device_ops']}")
         timing = step_times(records)
+        # trace_tools' tables and the tb/ events, before the re-run below
+        # writes a second events file
+        pipe_trace = trace_and_events_check(workdir, accum)
 
         # the same command again: it resumes, trains no step, stops
         t1 = time.perf_counter()
@@ -2340,6 +2374,7 @@ def phase_train_pipeline(power_line: str, flagship_p50_ms: float
               "copies": prof["copies"], "host_ms": prof["host_ms"],
               "device_busy_ms": prof["device_busy_ms"],
               "device_ops": prof["device_ops"]},
+          "trace_and_events": pipe_trace,
           "resume_s": resume_s, "distill": {
               "steps": PIPE_TEACHER_STEPS, "warm_start": copied,
               "distill_loss": distill, "seconds": distill_s,
@@ -3344,6 +3379,357 @@ def phase_scaleout_m11b(power_line: str) -> tuple[dict, dict]:
     return k1, k2
 
 
+# ------------------------------------------------------------------ M12: the tools and the demo
+
+TOOLS_SUMMARY_BATCH = 32
+TOOLS_TRAIN_IMAGES = 512  # crowded train scenes (the tool's default: 2000)
+TOOLS_VAL_IMAGES = 64
+TOOLS_STEPS = 100
+TOOLS_ARTIFACT_STEPS = 200
+TOOLS_HIRES = (4, 1024)  # tiled study: scenes, size
+TOOLS_CPU_ROWS = 4  # images of a sweep batch held against the CPU
+ANCHOR_SCENES, ANCHOR_BATCH = 64, 16
+TRACE_BAR = 0.01  # the trace's device ms against profiling.summarize's
+TF_CKPT = os.path.join(ROOT, "ssd_tpu_torch", "assets", "tf_ckpt_v1")
+
+
+def trace_and_events_check(workdir: str, accum: int = 1) -> dict:
+    """A ``train(profile_steps=1)`` run's outputs read back: the per-op
+    and per-category tables of ``utils/trace_tools`` over its
+    ``profile/trace.json``, their device ms within 1% of
+    ``utils/profiling.summarize``'s on the same window and K2's row
+    counting the window's launches; its ``tb/`` scalars equal to its
+    ``metrics.jsonl`` (at f32, as tfevents stores them)."""
+    from ssd_tpu_torch.utils import tensorboard, trace_tools
+
+    with open(os.path.join(workdir, "profile", "summary.json")) as f:
+        prof = json.load(f)
+    t = trace_tools.tables(trace_tools.find_trace(
+        os.path.join(workdir, "profile")), device="cuda")
+    k2 = sum(op["calls"] for op in t["ops"] if "match_kernel" in op["name"])
+    rel = abs(t["total_ms"] / prof["device_busy_ms"] - 1)
+    if rel > TRACE_BAR or k2 != accum:
+        raise AssertionError(f"trace tables: {t['total_ms']} ms against "
+                             f"{prof['device_busy_ms']}, K2 calls {k2}")
+    (events,) = glob.glob(os.path.join(workdir, "tb",
+                                       "events.out.tfevents.*"))
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    want = [(r["step"], k, float(np.float32(v))) for r in records
+            for k, v in r.items()
+            if k != "step" and isinstance(v, (int, float))]
+    got = tensorboard.read_scalars(events)
+    if got != want or not want:
+        raise AssertionError(f"tb/ holds {len(got)} scalars, metrics.jsonl "
+                             f"{len(want)}")
+    return {"trace_device_ms": t["total_ms"],
+            "profiling_device_busy_ms": prof["device_busy_ms"],
+            "relative_gap": rel, "by_category_ms": t["by_category_ms"],
+            "top_ops": [{k: op[k] for k in ("name", "category", "ms",
+                                            "calls")}
+                        for op in t["ops"][:8]],
+            "k2_calls": k2, "tb_scalars": len(got),
+            "tb_equal_metrics_jsonl": True}
+
+
+def _tools_summarize(power_line: str) -> tuple[dict, int, int]:
+    """``tools/summarize.py`` on the flagship at b32, serve and train, its
+    roofline beside the same predict's device ms."""
+    from ssd_tpu_torch.tools import summarize
+
+    cfg = Config.load(FLAGSHIP)
+    nms_cuda.launches = matching_cuda.launches = 0
+    t0 = time.perf_counter()
+    b = TOOLS_SUMMARY_BATCH
+    r = summarize.summarize(cfg, batch=b, train=True, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    nms_n, match_n = nms_cuda.launches, matching_cuda.launches
+    det = Detector(cfg, device=DEVICE)
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (b, *cfg.image_hw(), 3), dtype=np.uint8)).to(DEVICE)
+    with torch.inference_mode():
+        measured = cuda_ms(lambda: det.predict(images), iters=5)
+    serve = r["serve"]
+    row = {"config": os.path.relpath(FLAGSHIP, ROOT), "batch": b,
+           "params": r["params"]["total"], "seconds": seconds,
+           **{name: {k: r[name][k] for k in (
+               "flops", "bytes", "flops_by_class", "arithmetic_intensity",
+               "bound", "roofline_ms", "roofline_img_per_s",
+               "flops_per_image_g")} for name in ("serve", "train")},
+           "serve_measured_device_ms": measured,
+           "measured_over_roofline": measured / serve["roofline_ms"],
+           "flagship_serve_device_ms": MEASURED.get("flagship"),
+           "card": power_line}
+    if not (serve["flops"] > 0 and r["train"]["flops"]
+            > 1.5 * serve["flops"] and nms_n == 1 and match_n == 1):
+        raise AssertionError(f"summarize: {row}, K1 {nms_n}, K2 {match_n}")
+    return row, nms_n, match_n
+
+
+def _tools_anchors(root: str) -> tuple[dict, int]:
+    """``tools/analyze_anchors.py`` on the flagship at 640 over 64 seeded
+    80-class crowded scenes: K2 once a batch on the card, the report equal
+    to the CPU's plain matcher's on the same file."""
+    import io
+
+    from PIL import Image
+
+    from ssd_tpu_torch.data.tfrecord import (RecordWriter,
+                                             encode_detection_example)
+    from ssd_tpu_torch.tools import analyze_anchors
+
+    cfg = Config.load(FLAGSHIP)
+    path = os.path.join(root, "anchors-00000-of-00001")
+    rng = np.random.default_rng(CROWDED_SEED)
+    with RecordWriter(path) as w:
+        for _ in range(ANCHOR_SCENES):
+            img, boxes, labels = synthetic.crowded_example(rng, 80, 640)
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, "JPEG", quality=95)
+            w.write(encode_detection_example(buf.getvalue(), boxes, labels,
+                                             image_hw=(640, 640)))
+    matching_cuda.launches = 0
+    t0 = time.perf_counter()
+    card = analyze_anchors.analyze(cfg, data_pattern=path,
+                                   batch_size=ANCHOR_BATCH, device=DEVICE)
+    card_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+    t0 = time.perf_counter()
+    cpu = analyze_anchors.analyze(cfg, data_pattern=path,
+                                  batch_size=ANCHOR_BATCH, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if card != cpu or launches != ANCHOR_SCENES // ANCHOR_BATCH:
+        raise AssertionError(f"anchors: card {card}, cpu {cpu}, "
+                             f"K2 {launches}")
+    return {"report": card, "equal_to_cpu": True, "card_s": card_s,
+            "cpu_s": cpu_s}, launches
+
+
+def _hard_rows_vs_cpu(cfg: Config, checks: dict):
+    """A ``run_sweep`` hook: on the first batch, each hard row's card
+    detections of ``TOOLS_CPU_ROWS`` images against the CPU plain
+    version's on the same raw maps, under the golden set rule."""
+    from ssd_tpu_torch.tools import crowded_validation as crowded
+
+    anchors = torch.from_numpy(generate_anchors(cfg.image_size, cfg.anchors))
+    cpu_variants = crowded.variant_postprocessors(
+        types.SimpleNamespace(anchors=anchors), cfg)
+
+    def hook(images, raw, outputs):
+        if checks:
+            return
+        n = TOOLS_CPU_ROWS
+        cpu_raw = [(c[:n].cpu(), b[:n].cpu()) for c, b in raw]
+        logits, deltas = flatten_levels(cpu_raw, cfg.num_classes)
+        for name, kind, fn in cpu_variants:
+            if "soft" in name:
+                continue
+            with torch.inference_mode():
+                want = fn(logits, deltas) if kind == "flat" else fn(cpu_raw)
+            got = outputs[name]
+            checks[name] = set_match(
+                {k: getattr(got, k)[:n].cpu().numpy() for k in DET_KEYS},
+                {k: getattr(want, k).numpy() for k in DET_KEYS})
+    return hook
+
+
+def _tools_crowded(root: str) -> tuple[dict, dict, Config, dict]:
+    """``tools/crowded_validation.py`` at its full width (256 px, x0.5,
+    FPN 64, 40 classes): trained 100 steps from tfrecords (one step
+    profiled), then the 24 variants over 64 val scenes. Returns (row,
+    launches by kind, config, state)."""
+    from ssd_tpu_torch.tools import crowded_validation as crowded
+
+    workdir = os.path.join(root, "crowd")
+    t0 = time.perf_counter()
+    crowded.prepare(workdir, TOOLS_TRAIN_IMAGES, TOOLS_VAL_IMAGES)
+    write_s = time.perf_counter() - t0
+    cfg = crowded.make_config(workdir, TOOLS_STEPS)
+    rundir = os.path.join(workdir, "run")
+    matching_cuda.launches = 0
+    t0 = time.perf_counter()
+    # logged every 10 steps (the tool's 100), for the tb/ check
+    train(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_every=10)), rundir, max_steps=TOOLS_STEPS,
+        device=DEVICE, profile_steps=1)
+    train_s = time.perf_counter() - t0
+    train_k2 = matching_cuda.launches
+    if train_k2 != TOOLS_STEPS:
+        raise AssertionError(f"crowded training: {train_k2} K2 launches")
+    _, state = load_inference_artifact(os.path.join(rundir, EXPORT_NAME))
+    checks: dict = {}
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    rows = crowded.run_sweep(cfg, state, cfg.data.val_file_pattern,
+                             TOOLS_VAL_IMAGES, device=DEVICE,
+                             on_batch=_hard_rows_vs_cpu(cfg, checks))
+    sweep_s = time.perf_counter() - t0
+    sweep_k1 = nms_cuda.launches
+    batches = -(-TOOLS_VAL_IMAGES // 16)
+    hard = [r["variant"] for r in rows if "soft" not in r["variant"]]
+    crowded.print_table(rows)
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if (len(rows) != 24 or len(hard) != 21 or sweep_k1 != 21 * batches
+            or sorted(checks) != sorted(hard) or bad
+            or not all(np.isfinite(r["mAP"]) for r in rows)):
+        raise AssertionError(f"crowded sweep: K1 {sweep_k1}, hard rows "
+                             f"unmatched on the CPU {bad}, rows {rows}")
+    row = {"config": "crowded_validation.make_config (256 px, x0.5, FPN 64, "
+                     "40 classes)",
+           "train_images": TOOLS_TRAIN_IMAGES, "val_images": TOOLS_VAL_IMAGES,
+           "steps": TOOLS_STEPS, "write_s": write_s, "train_s": train_s,
+           "sweep_s": sweep_s, "rows": rows,
+           "hard_rows_vs_cpu": {k: f"{v[0]}/{v[1]}"
+                                for k, v in checks.items()},
+           "trace_and_events": trace_and_events_check(rundir)}
+    return row, {"train_k2": train_k2, "sweep_k1": sweep_k1}, cfg, state
+
+
+def _tools_tiled(cfg: Config, state: dict) -> tuple[dict, int]:
+    """``tools/tiled_validation.py`` on the sweep's weights: 4 scenes at
+    1024 px, the three ablations too."""
+    from ssd_tpu_torch.tools import tiled_validation
+
+    scenes, size = TOOLS_HIRES
+    args = types.SimpleNamespace(ablate=True, hires_size=size,
+                                 val_images=scenes)
+    nms_cuda.launches = 0
+    rows = tiled_validation.evaluate_variants(state, cfg, args,
+                                              device=DEVICE)
+    launches = nms_cuda.launches
+    tiled_validation.print_rows(rows)
+    if launches != (1 + scenes) * len(rows) or len(rows) != 5:
+        raise AssertionError(f"tiled: K1 {launches}, rows {rows}")
+    return {"scenes": scenes, "hires_size": size, "rows": rows}, launches
+
+
+def _tools_calibration(root: str, crowd_dir: str) -> tuple[dict, int, int]:
+    """``tools/calibration_study.py``: its dense4 model trained 100 steps,
+    then bf16 and one int8 regime (8 train images, absmax)."""
+    from ssd_tpu_torch.tools import calibration_study as study
+
+    cfg = study.dense4_config(crowd_dir, TOOLS_STEPS)
+    rundir = os.path.join(root, "calib_run")
+    matching_cuda.launches = 0
+    t0 = time.perf_counter()
+    train(cfg, rundir, max_steps=TOOLS_STEPS, device=DEVICE)
+    train_s = time.perf_counter() - t0
+    k2 = matching_cuda.launches
+    _, state = load_inference_artifact(os.path.join(rundir, EXPORT_NAME))
+    nms_cuda.launches = 0
+    bf16 = study.eval_map(cfg, state, cfg.data.val_file_pattern,
+                          TOOLS_VAL_IMAGES, DEVICE)
+    batches = study._batches_from(cfg.data.train_file_pattern, cfg, 8)
+    seen, m8 = study.int8_map(cfg, state, batches, None,
+                              cfg.data.val_file_pattern, TOOLS_VAL_IMAGES,
+                              DEVICE)
+    k1 = nms_cuda.launches
+    want_k1 = 2 * -(-TOOLS_VAL_IMAGES // 16)
+    if k2 != TOOLS_STEPS or k1 != want_k1 or not np.isfinite(m8):
+        raise AssertionError(f"calibration: K2 {k2}, K1 {k1}, int8 {m8}")
+    rows = [{"regime": "bf16 baseline", "mAP": bf16, "d_mAP": 0.0},
+            {"regime": f"int8 cal=train n={seen} clip=absmax", "mAP": m8,
+             "d_mAP": m8 - bf16}]
+    study.print_rows(rows)
+    return {"steps": TOOLS_STEPS, "train_s": train_s, "rows": rows}, k1, k2
+
+
+def _tools_artifact(root: str) -> tuple[dict, int, int]:
+    """``tools/make_bench_artifact.py``: 200 steps from ``--seed 0``."""
+    from ssd_tpu_torch.tools import make_bench_artifact
+
+    nms_cuda.launches = matching_cuda.launches = 0
+    t0 = time.perf_counter()
+    r = make_bench_artifact.main(["--out", os.path.join(root, "sanity_art"),
+                                  "--steps", str(TOOLS_ARTIFACT_STEPS),
+                                  "--seed", "0", "--device", str(DEVICE)])
+    seconds = time.perf_counter() - t0
+    k1, k2 = nms_cuda.launches, matching_cuda.launches
+    losses = r["losses"]
+    if (k2 != TOOLS_ARTIFACT_STEPS or k1 < 1 or not np.isfinite(losses).all()
+            or r["dtype"] != "bf16"):
+        raise AssertionError(f"make_bench_artifact: {r}, K1 {k1}, K2 {k2}")
+    return {"steps": TOOLS_ARTIFACT_STEPS, "seed": 0,
+            "losses": {i: losses[i] for i in (0, 100, len(losses) - 1)},
+            "sanity_map_bf16": r["sanity_map"], "seconds": seconds}, k1, k2
+
+
+def _tools_import(root: str) -> tuple[dict, int]:
+    """``tools/import_tf.py`` on the committed TF1 checkpoint: the artifact
+    served on the card (K1) equal to the CPU's predict of it."""
+    from ssd_tpu_torch.tools import import_tf
+
+    out = os.path.join(root, "imported")
+    import_tf.main(["--config", os.path.join(TF_CKPT, "config.json"),
+                    "--tf-ckpt", os.path.join(TF_CKPT, "model.ckpt"),
+                    "--name-map", os.path.join(TF_CKPT, "name_map.json"),
+                    "--output", out])
+    card = Predictor.from_checkpoint(out, device=DEVICE)
+    cpu = Predictor.from_checkpoint(out, device="cpu")
+    h, w = card.cfg.image_hw()
+    images = np.random.default_rng(2).integers(0, 256, (8, h, w, 3),
+                                               dtype=np.uint8)
+    nms_cuda.launches = 0
+    got = card.predict(images)
+    launches = nms_cuda.launches
+    matched, total = set_match(got, cpu.predict(images))
+    if launches != 1 or matched != total or not total:
+        raise AssertionError(f"import_tf: {matched}/{total}, K1 {launches}")
+    return {"checkpoint": os.path.relpath(TF_CKPT, ROOT),
+            "tensors": len(import_tf.TensorBundle(
+                os.path.join(TF_CKPT, "model.ckpt")).names()),
+            "card_vs_cpu": f"{matched}/{total}"}, launches
+
+
+def _tools_demo(root: str) -> tuple[dict, int]:
+    """``python -m ssd_tpu_torch.demo --selftest`` on the card."""
+    from PIL import Image
+
+    from ssd_tpu_torch import demo
+
+    png = os.path.join(root, "demo.png")
+    nms_cuda.launches = 0
+    out = demo.main(["--selftest", "--output", png, "--device",
+                     str(DEVICE)])
+    launches = nms_cuda.launches
+    shape = np.asarray(Image.open(png)).shape
+    if launches != 1 or shape != (480, 640, 3):
+        raise AssertionError(f"demo: K1 {launches}, png {shape}")
+    return {"png": list(shape), "detections": int(out["num_boxes"])}, launches
+
+
+def phase_tools_m12(power_line: str) -> tuple[dict, dict]:
+    """M12 and the demo on the card (module docstring, phase 10). Returns
+    the K1 and the K2 launches by row."""
+    root = tempfile.mkdtemp(prefix="ssd_tools_")
+    nms_by, match_by, rows = {}, {}, {}
+    t_phase = time.perf_counter()
+    try:
+        rows["summarize"], nms_by["summarize"], match_by["summarize"] = \
+            _tools_summarize(power_line)
+        rows["analyze_anchors"], match_by["analyze_anchors"] = \
+            _tools_anchors(root)
+        rows["crowded_sweep"], k, cfg, state = _tools_crowded(root)
+        match_by["crowded_train"], nms_by["crowded_sweep"] = (
+            k["train_k2"], k["sweep_k1"])
+        rows["tiled_validation"], nms_by["tiled_validation"] = \
+            _tools_tiled(cfg, state)
+        (rows["calibration_study"], nms_by["calibration_study"],
+         match_by["calibration_train"]) = _tools_calibration(
+             root, os.path.join(root, "crowd"))
+        (rows["make_bench_artifact"], nms_by["make_bench_artifact"],
+         match_by["make_bench_artifact"]) = _tools_artifact(root)
+        rows["import_tf"], nms_by["import_tf"] = _tools_import(root)
+        rows["demo"], nms_by["demo"] = _tools_demo(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "tools_m12", "card": power_line,
+          "seconds": time.perf_counter() - t_phase, **rows,
+          "nms_launches": nms_by, "match_launches": match_by})
+    return ({f"tools_{k}": v for k, v in nms_by.items()},
+            {f"tools_{k}": v for k, v in match_by.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3365,6 +3751,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--phase", "scaleout_m11b"]:  # that phase alone
         phase_scaleout_m11b(power_line)
+        return 0
+    if sys.argv[1:] == ["--phase", "tools_m12"]:  # that phase alone
+        phase_tools_m12(power_line)
         return 0
 
     phase_host_ingest(power_line)
@@ -3411,6 +3800,9 @@ def main() -> int:
     (match_launches_pipeline, nms_launches_train,
      nms_launches_eval_golden, nms_launches_new["eval_cli"]) = \
         phase_train_pipeline(power_line, flagship_p50)
+    nms_launches_tools, match_launches_tools = phase_tools_m12(power_line)
+    nms_launches_new.update(nms_launches_tools)
+    match_launches_new.update(match_launches_tools)
     nms_launches_scaleout, match_launches_scaleout = phase_scaleout(
         power_line)
     nms_launches_new.update(nms_launches_scaleout)

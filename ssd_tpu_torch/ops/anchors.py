@@ -62,3 +62,15 @@ def generate_anchors(image_size, cfg: AnchorConfig) -> np.ndarray:
         fh, fw = -(-ih // stride), -(-iw // stride)
         out.append(_level_anchors(fh, fw, stride, (ih, iw), cfg))
     return np.concatenate(out, axis=0)
+
+
+def anchor_counts_per_level(image_size, cfg: AnchorConfig) -> tuple[int, ...]:
+    """Number of anchors each level contributes, in the order of
+    ``generate_anchors``."""
+    ih, iw = _hw(image_size)
+    counts = []
+    for level in range(cfg.min_level, cfg.max_level + 1):
+        stride = 2 ** level
+        fh, fw = -(-ih // stride), -(-iw // stride)
+        counts.append(fh * fw * cfg.num_anchors_per_cell)
+    return tuple(counts)

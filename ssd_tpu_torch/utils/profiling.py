@@ -1,5 +1,15 @@
-"""What a ``torch.profiler`` window shows: host spans, CUDA runtime calls,
-waits for the card, copies and device time.
+"""Trace capture, and what a ``torch.profiler`` window shows: host spans,
+CUDA runtime calls, waits for the card, copies and device time.
+
+Capture (the port's ``ssd_tpu/utils/profiling.py``): ``start_trace(log_dir)``
+and ``stop_trace()``, or the context manager ``trace(log_dir)``, record a
+``torch.profiler`` window (CPU activity, and CUDA activity where a card is
+present) and write its chrome trace to ``log_dir/trace.json``, which
+``utils/trace_tools.py`` reads (as it reads ``train --profile N``'s
+``workdir/profile/trace.json`` and ``bench_train --profile DIR``'s).
+``annotate(name)`` is a named span in that trace (``record_function``).
+``start_server`` raises: XProf's live profiler server has no torch
+counterpart.
 
 ``summarize`` reads the events of a finished ``torch.profiler.profile``
 whose code marked its phases with ``record_function(prefix + name)`` (the
@@ -17,10 +27,70 @@ stream before it starts.
 from __future__ import annotations
 
 import collections
+import contextlib
+import os
 
 import torch
+from torch.profiler import record_function
 
 from ssd_tpu_torch.device import STAGING_WAIT
+
+TRACE_FILE = "trace.json"
+_active: dict = {}  # the window start_trace opened: profiler, log_dir
+
+
+def start_server(port: int = 9999):
+    """XProf's live trace server has no torch counterpart: raises."""
+    raise NotImplementedError(
+        "start_server: torch.profiler has no live trace server; capture a "
+        "window with utils.profiling.trace(log_dir) and read it with "
+        "python -m ssd_tpu_torch.utils.trace_tools log_dir")
+
+
+def start_trace(log_dir: str) -> None:
+    """Begins recording a window (see :func:`stop_trace`)."""
+    if _active:
+        raise RuntimeError("a trace is already being recorded")
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()  # the window starts with an idle card
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        *([torch.profiler.ProfilerActivity.CUDA] if cuda else [])])
+    prof.__enter__()
+    _active.update(prof=prof, log_dir=log_dir, cuda=cuda)
+
+
+def stop_trace() -> str:
+    """Ends the window (after the card's queued work) and writes its chrome
+    trace; returns the file's path."""
+    if not _active:
+        raise RuntimeError("no trace is being recorded")
+    prof, log_dir, cuda = _active.pop("prof"), _active.pop(
+        "log_dir"), _active.pop("cuda")
+    if cuda:
+        torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Records the enclosed steps into ``log_dir/trace.json``."""
+    start_trace(log_dir)
+    try:
+        yield
+    finally:
+        stop_trace()
+
+
+def annotate(name: str):
+    """A named span in the trace (host side; mirrored on the device
+    timeline as an annotation)."""
+    return record_function(name)
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")

@@ -35,7 +35,10 @@ writes:
 import dataclasses
 import json
 import os
+import subprocess
 import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -188,12 +191,39 @@ def jax_case(name: str) -> dict:
     return out
 
 
+# the cases by their time on one host, longest first, and how many run at
+# once: each compiles JAX's f32 and f64 gradient and runs the f64 one (about
+# 35-60 s a case; 230 s one after another)
+CASE_ORDER = ("efficientnet_lite", "mobilenet_v2", "resnet50", "shufflenet",
+              "mobilenet_group")
+CASE_JOBS = 3
+
+
+def _case_in_process(name: str, tmp: str) -> dict:
+    """``jax_case(name)`` in a process of its own (this file's ``case``
+    command), its arrays through a ``.npz``."""
+    out = os.path.join(tmp, f"{name}.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "case",
+                        name, out], env=env, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
 def golden_arrays() -> dict:
+    """The asset's arrays: the batch, and each case's JAX numbers computed
+    ``CASE_JOBS`` cases at a time, each in its own process (the JAX
+    numbers do not depend on it)."""
+    assert sorted(CASE_ORDER) == sorted(CASES)
     cfg = case_config("resnet50")
     data = golden_batch(cfg)
     arrays = {f"batch/{k}": v for k, v in data.items()}
-    for name in CASES:
-        arrays.update(jax_case(name))
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(CASE_JOBS) as pool:
+        for case in pool.map(lambda n: _case_in_process(n, tmp), CASE_ORDER):
+            arrays.update(case)
     return arrays
 
 
@@ -284,5 +314,7 @@ if __name__ == "__main__":
                    for name in CASES}
         print(f"wrote {ASSET} ({os.path.getsize(ASSET)} bytes); "
               f"detections {json.dumps(summary)}")
+    elif len(sys.argv) == 4 and sys.argv[1] == "case":
+        np.savez(sys.argv[3], **jax_case(sys.argv[2]))
     else:
         sys.exit("usage: python tests/test_torch_backbones_golden.py regen")

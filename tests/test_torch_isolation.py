@@ -17,7 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "ssd_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "ssd_tpu",
+             "tensorflow", "h5py"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import ssd_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
@@ -26,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "flax", "optax", "orbax", "ssd_tpu")
+    "jax", "jaxlib", "flax", "optax", "orbax", "ssd_tpu", "tensorflow",
+    "h5py")
     and sys.modules[m] is not None)
 assert not leaked, leaked
 for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
@@ -38,7 +40,12 @@ for name in ("quant", "eval.coco_map", "eval.sanity", "serve", "data.native",
              "tools.train_memory", "tiling", "tta", "ops.wbf",
              "eval.__main__", "streaming", "export",
              "tools.bench_streaming", "parallel", "parallel.mesh",
-             "tools.scaleout_check", "parallel.spatial", "tools.dryrun"):
+             "tools.scaleout_check", "parallel.spatial", "tools.dryrun",
+             "utils.tensorboard", "utils.debug", "utils.trace_tools",
+             "tools.summarize", "tools.analyze_anchors",
+             "tools.crowded_validation", "tools.tiled_validation",
+             "tools.calibration_study", "tools.make_bench_artifact",
+             "tools.import_tf", "demo"):
     assert "ssd_tpu_torch." + name in names, name
 print(len(names))
 """
