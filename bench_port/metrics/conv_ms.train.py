@@ -1,0 +1,7 @@
+"""Device time of the conv and GEMM category a step, ms."""
+
+from bench_port import readers
+
+
+def read(summary: dict):
+    return readers.category_ms_per_unit(summary, "conv/gemm")
