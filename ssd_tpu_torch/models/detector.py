@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.constants import MEAN_RGB, STD_RGB
@@ -281,45 +282,51 @@ class Detector:
         cfg = self.cfg
         # OHEM ranks per-anchor losses, which only the flat loss forms
         per_level = cfg.losses.per_level and not cfg.losses.use_ohem
-        self.model.train()
         images = self.as_input(batch["images"])
-        raw = self.model(images)
-        targets = create_targets(
-            self.anchors, self.as_input(batch["boxes"]),
-            self.as_input(batch["labels"]), self.as_input(batch["num_boxes"]),
-            cfg.num_classes, cfg.matcher, class_onehot=not per_level)
-        if per_level:
-            ld = losses.detection_loss_levels(raw, targets, cfg.num_classes,
-                                              cfg.losses, anchors=self.anchors)
-        else:
-            logits, deltas = flatten_levels(raw, cfg.num_classes)
-            ld = losses.detection_loss(logits, deltas, targets, cfg.losses,
-                                       anchors=self.anchors)
-        metrics = {"loss": None, "classification_loss": ld.classification,
-                   "localization_loss": ld.localization}
-        total = ld.total
-        if l2:
-            reg = losses.l2_regularization(self.model.parameters(),
-                                           cfg.losses.weight_decay)
-            total = total + reg
-            metrics["regularization_loss"] = reg
-        metrics["loss"] = total
-        metrics["num_positives"] = ld.num_positives
-        if teacher is not None:
-            with torch.no_grad():
-                t_raw = teacher.model.eval()(images)
+        t_raw = None
+        with record_function("train.forward"):
+            raw = self.model.train()(images)
+            if teacher is not None:
+                with torch.no_grad():
+                    t_raw = teacher.model.eval()(images)
+        with record_function("train.targets"):
+            targets = create_targets(
+                self.anchors, self.as_input(batch["boxes"]),
+                self.as_input(batch["labels"]),
+                self.as_input(batch["num_boxes"]), cfg.num_classes,
+                cfg.matcher, class_onehot=not per_level)
+        with record_function("train.loss"):
             if per_level:
-                s_out = raw
+                ld = losses.detection_loss_levels(
+                    raw, targets, cfg.num_classes, cfg.losses,
+                    anchors=self.anchors)
             else:
-                s_out = (logits, deltas)
-                t_raw = flatten_levels(t_raw, cfg.num_classes)
-            dd = distillation_loss(
-                s_out, t_raw, cfg.num_classes,
-                temperature=cfg.train.distill_temperature,
-                box_weight=cfg.train.distill_box_weight)
-            total = total + cfg.train.distill_weight * dd.total
+                logits, deltas = flatten_levels(raw, cfg.num_classes)
+                ld = losses.detection_loss(logits, deltas, targets, cfg.losses,
+                                           anchors=self.anchors)
+            metrics = {"loss": None, "classification_loss": ld.classification,
+                       "localization_loss": ld.localization}
+            total = ld.total
+            if l2:
+                reg = losses.l2_regularization(self.model.parameters(),
+                                               cfg.losses.weight_decay)
+                total = total + reg
+                metrics["regularization_loss"] = reg
             metrics["loss"] = total
-            metrics["distill_loss"] = dd.total
+            metrics["num_positives"] = ld.num_positives
+            if t_raw is not None:
+                if per_level:
+                    s_out = raw
+                else:
+                    s_out = (logits, deltas)
+                    t_raw = flatten_levels(t_raw, cfg.num_classes)
+                dd = distillation_loss(
+                    s_out, t_raw, cfg.num_classes,
+                    temperature=cfg.train.distill_temperature,
+                    box_weight=cfg.train.distill_box_weight)
+                total = total + cfg.train.distill_weight * dd.total
+                metrics["loss"] = total
+                metrics["distill_loss"] = dd.total
         return total, {k: v.detach() for k, v in metrics.items()}
 
     @torch.inference_mode()
@@ -340,8 +347,19 @@ class Detector:
         """uint8 NHWC images (or the packed s8 feed) -> NMS'd detections:
         ``candidates``, then hard NMS with the suppression kernel on the
         card (its plain version on the CPU) or Soft-NMS
-        (``postprocess.run_nms``)."""
-        return run_nms(*self.candidates(images), self.cfg.nms)
+        (``postprocess.run_nms``). Its three phases run under the spans
+        ``predict.model`` (the forward), ``predict.select`` (the
+        candidates) and ``predict.nms`` (NMS and the class merge)."""
+        images = self.as_input(images)
+        with record_function("predict.model"):
+            model = self.model.eval()
+            levels = model.levels(
+                images, trunk_only=self.cfg.model.head_final_kernel == 1)
+        with record_function("predict.select"):
+            boxes, scores = select_from_levels(levels, model, self.anchors,
+                                               self.cfg)
+        with record_function("predict.nms"):
+            return run_nms(boxes, scores, self.cfg.nms)
 
 
 def select_for_nms(model: SSDModel, anchors: torch.Tensor, cfg: Config,

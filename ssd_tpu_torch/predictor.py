@@ -24,6 +24,13 @@ outputs into pinned host tensors, and one event. ``predict_collect`` waits
 on that event alone, so collecting batch k never waits for batch k + 1,
 and it issues no device work.
 
+Spans (``record_function``, read from a ``torch.profiler`` window):
+``predict.feed`` (the host feed into the staging buffer),
+``predict.copy`` (the uploads), ``predict.launch`` (the enqueue of the
+model and postprocess, and of the readback's copies), inside it each
+replica's ``predict.model``, ``predict.select`` and ``predict.nms``
+(``Detector.predict``), and ``predict.readback`` (collect's wait).
+
     python -m ssd_tpu_torch.predictor --export DIR_OR_FILE.npz \\
         --images a.jpg b.png \\
         [--out dets.json] [--batch-size 8] [--score-threshold 0.3] \\

@@ -90,7 +90,8 @@ class DeviceFeed:
 
     On the card each array is copied into a pinned staging buffer and sent
     without waiting (``device.PinnedStaging``, the predictor's design). On
-    the CPU the arrays become tensors as they are.
+    the CPU the arrays become tensors as they are. Runs under the span
+    ``train.feed``.
     """
 
     def __init__(self, device: torch.device):
@@ -99,15 +100,16 @@ class DeviceFeed:
 
     def __call__(self, batch: dict) -> dict:
         out = {}
-        for k in BATCH_KEYS:
-            arr = np.ascontiguousarray(batch[k])
-            host = torch.from_numpy(arr)
-            if self.device.type != "cuda":
-                out[k] = host
-                continue
-            buf, event = self.staging.take(arr.shape, host.dtype)
-            buf.copy_(host)
-            out[k] = self.staging.upload(buf, event, self.device)
+        with record_function("train.feed"):
+            for k in BATCH_KEYS:
+                arr = np.ascontiguousarray(batch[k])
+                host = torch.from_numpy(arr)
+                if self.device.type != "cuda":
+                    out[k] = host
+                    continue
+                buf, event = self.staging.take(arr.shape, host.dtype)
+                buf.copy_(host)
+                out[k] = self.staging.upload(buf, event, self.device)
         return out
 
 
@@ -333,10 +335,7 @@ def train(cfg: Config, workdir: str, batches=None, resume: bool = True,
             batch = next(data_iter)
             logger.tick_data()
             hw = tuple(int(v) for v in batch["images"].shape[1:3])
-            with record_function("train.feed"):
-                dev_batch = feed(batch)
-            with record_function("train.step"):
-                state, metrics = step_fn_for(hw)(state, dev_batch)
+            state, metrics = step_fn_for(hw)(state, feed(batch))
             step = state.step
             if step % t.log_every == 0 and rank == 0:
                 with record_function("train.log"):

@@ -43,6 +43,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.models.detector import Detector
@@ -239,6 +240,13 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
     replicated gradients are all-reduced (one flat buffer), an FSDP
     state's (``DTensor`` parameters) arrive reduce-scattered; L2 is added
     to the sum.
+
+    Spans (``record_function``): the step runs under ``train.step``;
+    inside it a host batch's upload under a mesh runs under
+    ``train.feed``, each microbatch's ``train.forward``, ``train.targets``
+    and ``train.loss`` (``Detector.loss``) and ``train.backward``, then
+    under a mesh ``train.reduce``, and once ``train.update``: the
+    averaging, L2, the global norm, the optimizer and the EMA.
     """
     n = max(grad_accum_steps, 1)
     decay = _F32(ema_decay)
@@ -248,40 +256,45 @@ def make_train_step(detector: Detector, optimizer: Optimizer,
     weight_decay = detector.cfg.losses.weight_decay
 
     def step(state: TrainState, batch: dict):
-        if group is not None and not isinstance(batch["images"],
-                                                torch.Tensor):
-            batch = mesh_lib.shard_batch(mesh, batch)
-        params = state.params
-        for p in params.values():
-            p.grad = None
-        msum = None
-        with mesh_lib.data_parallel(group):
-            for i in range(n):
-                micro = (batch if n == 1
-                         else {k: v[i::n] for k, v in batch.items()})
-                total, metrics = detector.loss(micro, teacher, l2=False)
-                total.backward()
-                msum = metrics if msum is None else {
-                    k: msum[k] + metrics[k] for k in msum}
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
-        if group is not None:
-            _reduce(grads, msum, group)
-        if n > 1:
-            inv = 1.0 / n
-            grads = {k: g * inv for k, g in grads.items()}
-            msum = {k: v * inv for k, v in msum.items()}
-        _add_l2(grads, params, msum, weight_decay)
-        msum["grad_norm"] = global_norm(grads.values()).detach()
-        optimizer.update(grads, state.opt_state, params)
-        for p in params.values():
-            p.grad = None
-        if state.ema_params is not None:
-            with torch.no_grad():
-                for k, e in state.ema_params.items():
-                    e.copy_(e * decay + params[k] * keep)
-        state.step += 1
-        return state, msum
+        with record_function("train.step"):
+            if group is not None and not isinstance(batch["images"],
+                                                    torch.Tensor):
+                with record_function("train.feed"):
+                    batch = mesh_lib.shard_batch(mesh, batch)
+            params = state.params
+            for p in params.values():
+                p.grad = None
+            msum = None
+            with mesh_lib.data_parallel(group):
+                for i in range(n):
+                    micro = (batch if n == 1
+                             else {k: v[i::n] for k, v in batch.items()})
+                    total, metrics = detector.loss(micro, teacher, l2=False)
+                    with record_function("train.backward"):
+                        total.backward()
+                    msum = metrics if msum is None else {
+                        k: msum[k] + metrics[k] for k in msum}
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in params.items()}
+            if group is not None:
+                with record_function("train.reduce"):
+                    _reduce(grads, msum, group)
+            with record_function("train.update"):
+                if n > 1:
+                    inv = 1.0 / n
+                    grads = {k: g * inv for k, g in grads.items()}
+                    msum = {k: v * inv for k, v in msum.items()}
+                _add_l2(grads, params, msum, weight_decay)
+                msum["grad_norm"] = global_norm(grads.values()).detach()
+                optimizer.update(grads, state.opt_state, params)
+                for p in params.values():
+                    p.grad = None
+                if state.ema_params is not None:
+                    with torch.no_grad():
+                        for k, e in state.ema_params.items():
+                            e.copy_(e * decay + params[k] * keep)
+            state.step += 1
+            return state, msum
 
     return step
 

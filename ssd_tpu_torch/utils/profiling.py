@@ -8,13 +8,22 @@ present) and write its chrome trace to ``log_dir/trace.json``, which
 ``utils/trace_tools.py`` reads (as it reads ``train --profile N``'s
 ``workdir/profile/trace.json`` and ``bench_train --profile DIR``'s).
 ``annotate(name)`` is a named span in that trace (``record_function``).
-``start_server`` raises: XProf's live profiler server has no torch
-counterpart.
+
+The program's spans: a predict's ``predict.feed``, ``predict.copy``,
+``predict.launch`` and ``predict.readback`` (``Predictor``), with
+``predict.model``, ``predict.select`` and ``predict.nms`` inside the
+launch (``Detector.predict``); a training step's ``train.feed``
+(``DeviceFeed``, or a mesh step's upload), ``train.step`` and inside it
+``train.forward``, ``train.targets``, ``train.loss``, ``train.backward``,
+``train.reduce`` (under a mesh) and ``train.update``
+(``train_step.make_train_step``), and the loop's ``train.log``; a pinned
+staging buffer's wait ``staging.wait``; ``streaming.push`` and
+``spatial.strip``.
 
 ``summarize`` reads the events of a finished ``torch.profiler.profile``
-whose code marked its phases with ``record_function(prefix + name)`` (the
-training loop's ``train.feed``, ``train.step``, ``train.log``). A wait for
-the card is a ``cudaStreamSynchronize``, ``cudaDeviceSynchronize`` or
+whose code marked its phases with ``record_function(prefix + name)``, such
+as the ``train.*`` spans above. A wait for the card is a
+``cudaStreamSynchronize``, ``cudaDeviceSynchronize`` or
 ``cudaEventSynchronize``; each is listed with the ops it ran under, so that
 a caller can tell the metrics readback from a sync inside a step
 (``chip_smoke.py`` reads a predict's ``predict.*`` spans the same way), and
@@ -37,14 +46,6 @@ from ssd_tpu_torch.device import STAGING_WAIT
 
 TRACE_FILE = "trace.json"
 _active: dict = {}  # the window start_trace opened: profiler, log_dir
-
-
-def start_server(port: int = 9999):
-    """XProf's live trace server has no torch counterpart: raises."""
-    raise NotImplementedError(
-        "start_server: torch.profiler has no live trace server; capture a "
-        "window with utils.profiling.trace(log_dir) and read it with "
-        "python -m ssd_tpu_torch.utils.trace_tools log_dir")
 
 
 def start_trace(log_dir: str) -> None:

@@ -168,12 +168,10 @@ def test_trace_capture_and_tables(tmp_path):
 
 
 def test_trace_missing_and_server(tmp_path):
-    from ssd_tpu_torch.utils import profiling, trace_tools
+    from ssd_tpu_torch.utils import trace_tools
 
     with pytest.raises(FileNotFoundError):
         trace_tools.find_trace(str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        profiling.start_server(9999)
 
 
 # -------------------------------------------------------------- summarize
