@@ -103,6 +103,24 @@ any failure raises:
    the same bars; with its time, the plain version's, the modules' and the
    card's bound (depthwise at the f32 peak, pointwise at the bf16
    tensor-core peak);
+   conv_s8: K4, the int8 dense conv (``csrc/conv_s8.cu``), driven through
+   ``ssd_tpu_torch.tools.bench_conv_s8``: every case of
+   ``tools/kernel_cases.conv_cases`` bit-equal to its plain composition
+   on the card; the benchmark cell's int8 forward at b32
+   (``bench_port/configs/ssd_mnv1_fpn_640.json``): K4's launches equal to
+   its int8 dense convs, no ``torch._int_mm``, no weight preparation after
+   the first batch; each distinct conv shape of that forward, on seeded
+   inputs, bit-equal to the plain composition and timed (graph replay and
+   eager calls) beside its bound, the plain composition and
+   ``torch._int_mm`` alone on its im2col; one conv's host cost through
+   the operator; that forward at b32 and every shipped config's int8
+   forward with K4 bit-equal to the same forward with the plain
+   composition on the card (``python3 chip_smoke.py --phase conv_s8``
+   runs this phase alone, ``--phase int8`` it and every phase that serves
+   int8: int8_sanity, gemm_exact, int8_flagship, the int8_ serves,
+   serve_pipelined, tiled, streaming, export). Every phase that serves
+   counts K4's launches beside K1's and holds them to the model's int8
+   dense convs a forward times its forwards (none in bf16);
 6. match: the anchor-matching kernel against its plain PyTorch version on
    the card, on every case of ``ssd_tpu_torch/tools/kernel_cases.py``: the
    flagship training shape (N=64, A=76 725, M=100, crowded 640 px scenes
@@ -255,12 +273,13 @@ from ssd_tpu_torch.export import (export_program, load_inference_artifact,
                                   load_program)
 from ssd_tpu_torch.models.detector import Detector, normalize_images
 from ssd_tpu_torch.models.fpn import flatten_levels
-from ssd_tpu_torch.models.layers import (conv_int8, dequantize, im2col,
-                                         int_mm, quantize_activation,
+from ssd_tpu_torch.models.layers import (conv_int8, dequantize,
+                                         im2col_padded, int_mm,
+                                         quantize_activation,
                                          quantize_weight)
-from ssd_tpu_torch.ops import (box_utils, fused_early, fused_early_cuda,
-                               ingest, losses, matching, matching_cuda, nms,
-                               nms_cuda)
+from ssd_tpu_torch.ops import (box_utils, conv_s8_cuda, fused_early,
+                               fused_early_cuda, ingest, losses, matching,
+                               matching_cuda, nms, nms_cuda)
 from ssd_tpu_torch.ops.anchors import generate_anchors
 from ssd_tpu_torch.ops.fused_head import fused_logit_max, predict_params
 from ssd_tpu_torch.ops.postprocess import (postprocess_pyramid, run_nms,
@@ -275,9 +294,9 @@ from ssd_tpu_torch.parallel.spatial import STRIP_SPAN
 from ssd_tpu_torch.streaming import PUSH_SPAN, StreamingDetector
 from ssd_tpu_torch.tiling import TiledPredictor
 from ssd_tpu_torch.parallel import mesh as mesh_lib
-from ssd_tpu_torch.tools import (bench_fused_early, bench_http, bench_serve,
-                                 bench_streaming, kernel_cases,
-                                 scaleout_check, train_memory)
+from ssd_tpu_torch.tools import (bench_conv_s8, bench_fused_early,
+                                 bench_http, bench_serve, bench_streaming,
+                                 kernel_cases, scaleout_check, train_memory)
 from ssd_tpu_torch.tta import TTAPredictor, fuse_flip_batch
 from ssd_tpu_torch.tools.bench_fused_early import cuda_ms, randomize_early_bn
 from ssd_tpu_torch.tools.bench_kernels import kernel_ms
@@ -570,10 +589,11 @@ def phase_int8_sanity(power_line: str) -> int:
     rel = {k: abs(got_scales[k] / jax_scales[k] - 1) for k in jax_scales}
     worst = max(rel, key=rel.get)
 
-    nms_cuda.launches = 0
+    nms_cuda.launches = conv_s8_cuda.launches = 0
     result = sanity.evaluate_predictor(pred)
-    launches = nms_cuda.launches
+    launches, k4 = nms_cuda.launches, conv_s8_cuda.launches
     port_map = float(result["mAP"])
+    k4 = k4_count(pred.detector, images[:1], k4, launches, "int8_sanity")
 
     cfg, state = load_npz_artifact(ASSET)
     state.update({k: torch.tensor(v) for k, v in jax_scales.items()})
@@ -588,7 +608,7 @@ def phase_int8_sanity(power_line: str) -> int:
               for k, v in got_scales.items() if k.startswith("backbone.")),
           "map": port_map, "jax_cpu_map": jax_map,
           "map_diff": port_map - jax_map, "map_bar": SANITY_MAP_BAR,
-          "ap50": result["AP50"], "nms_launches": launches,
+          "ap50": result["AP50"], "nms_launches": launches, **k4,
           "jax_scales_matched": matched, "jax_scales_total": total,
           "jax_scales_match_share": matched / max(total, 1),
           "note": "int8 on " + power_line})
@@ -639,7 +659,8 @@ def phase_gemm_exact(power_line: str) -> None:
     t0 = time.perf_counter()
     y_cpu = conv_int8(x_q, k_q, 1)
     cpu_s = time.perf_counter() - t0
-    cols = im2col(x_q, 3, 1).reshape(-1, 9 * c)[:2048]
+    cols = im2col_padded(x_q, 3, 3, 1, (1, 1, 1, 1), (h, w)).reshape(
+        -1, 9 * c)[:2048]
     w2d = k_q.permute(0, 2, 3, 1).reshape(k_out, 9 * c)
     if not torch.equal(y_cpu.reshape(-1, k_out)[:2048],
                        cols.int() @ w2d.int().t()):
@@ -650,7 +671,8 @@ def phase_gemm_exact(power_line: str) -> None:
     with torch.inference_mode():
         y_dev = conv_int8(x_d, k_d, 1)
         out_dev = dequantize(y_dev, scale.to(DEVICE), bias.to(DEVICE))
-        cols_d = im2col(x_d, 3, 1).reshape(-1, 9 * c)
+        cols_d = im2col_padded(x_d, 3, 3, 1, (1, 1, 1, 1), (h, w)).reshape(
+            -1, 9 * c)
         w_d = w2d.to(DEVICE)
         gemm_ms = cuda_ms(lambda: int_mm(cols_d, w_d), iters=10)
     torch.cuda.synchronize()
@@ -679,6 +701,23 @@ def _check_output(out: dict, n: int, max_boxes: int) -> None:
     assert out["num_boxes"].shape == (n,)
     assert np.isfinite(out["boxes"]).all() and np.isfinite(out["scores"]).all()
     assert (out["boxes"] >= 0).all() and (out["boxes"] <= 1).all()
+
+
+def k4_count(det: Detector, images, launches: int, forwards: int,
+             what: str) -> dict:
+    """K4's ``launches`` (``conv_s8_cuda.launches``) over ``forwards``
+    forwards of ``det``'s model, against its int8 dense convs a forward
+    (counted on one more forward of ``images`` by
+    ``bench_conv_s8.conv_calls``; none in a bf16 model): raises unless
+    equal."""
+    model = det.model.eval()
+    with torch.inference_mode(), bench_conv_s8.conv_calls(model) as convs:
+        model(det.as_input(images))
+    if launches != convs[0] * forwards:
+        raise AssertionError(f"{what}: {launches} K4 launches for "
+                             f"{forwards} forwards of {convs[0]} int8 "
+                             "dense convs")
+    return {"k4_launches": launches, "int8_dense_convs_a_forward": convs[0]}
 
 
 def calibrate_flagship(pred: Predictor, cfg: Config) -> dict:
@@ -748,7 +787,7 @@ def int8_checks(pred: Predictor, cfg: Config, batches: list,
         a_scale = conv.act_scale(x)
         x_q = quantize_activation(x, a_scale)
         k_q, k_scale = quantize_weight(conv.weight)
-        cols = im2col(x_q, 3, 1)
+        cols = im2col_padded(x_q, 3, 3, 1, (1, 1, 1, 1), (fh, fw))
         cols2d = cols.reshape(-1, cols.shape[-1])
         w2d = k_q.permute(0, 2, 3, 1).reshape(k_q.shape[0], -1)
         y = int_mm(cols2d, w2d)
@@ -758,7 +797,8 @@ def int8_checks(pred: Predictor, cfg: Config, batches: list,
         parts = {
             "quantize": cuda_ms(lambda: quantize_activation(x, a_scale), 10),
             "weights": cuda_ms(lambda: quantize_weight(conv.weight), 10),
-            "im2col": cuda_ms(lambda: im2col(x_q, 3, 1), 10),
+            "im2col": cuda_ms(lambda: im2col_padded(
+                x_q, 3, 3, 1, (1, 1, 1, 1), (fh, fw)), 10),
             "gemm": cuda_ms(lambda: int_mm(cols2d, w2d), 10),
             "dequantize": cuda_ms(lambda: dequantize(y, scale, conv.bias), 10),
             "whole": cuda_ms(lambda: conv(x), 10),
@@ -819,7 +859,7 @@ def phase_serve(phase: str, config: str, power_line: str,
 
     # ---- the main path, counted
     torch.cuda.reset_peak_memory_stats()
-    nms_cuda.launches = 0
+    nms_cuda.launches = conv_s8_cuda.launches = 0
     batch_ms = []
     for i in range(10):
         t0 = time.perf_counter()
@@ -831,11 +871,13 @@ def phase_serve(phase: str, config: str, power_line: str,
     pred.preserve_aspect = True
     out_box = pred.predict(mixed[2])
     pred.preserve_aspect = False
-    launches = nms_cuda.launches
+    launches, k4 = nms_cuda.launches, conv_s8_cuda.launches
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     assert out_box["boxes"].shape == (cfg.nms.max_boxes, 4)
     if launches != 12:
         raise AssertionError(f"{launches} NMS launches, want one per request")
+    extra.update(k4_count(pred.detector, batches[0][:1], k4, launches,
+                          phase))
 
     # ---- host side of one batch: the feed (the dense4 pack, or the raw
     # batch as it is) and the copy to the card
@@ -1462,7 +1504,7 @@ def phase_serve_pipelined(power_line: str) -> int:
         torch.cuda.reset_peak_memory_stats()
 
         # ---- the main path, counted: pipelined, bench_serve, bench_http
-        nms_cuda.launches = 0
+        nms_cuda.launches = conv_s8_cuda.launches = 0
         handles, piped = collections.deque(), []
         for i in range(10):
             handles.append(pred.predict_dispatch(batches[i % 4]))
@@ -1489,7 +1531,9 @@ def phase_serve_pipelined(power_line: str) -> int:
             launches_http = nms_cuda.launches - before
         finally:
             srv.stop()
-        launches = nms_cuda.launches
+        launches, k4 = nms_cuda.launches, conv_s8_cuda.launches
+        k4 = k4_count(pred.detector, batches[0][:1], k4, launches,
+                      f"serve_pipelined {dtype}")
         srv4 = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=32,
                                scan_depth=4)
         srv4.warmup()  # groups of 2, 3 and 4 batches of 32
@@ -1510,7 +1554,7 @@ def phase_serve_pipelined(power_line: str) -> int:
               "pipelined_equal_serial": not mixed, "mixed_batches": mixed,
               "nms_launches": {"pipelined": launches_piped,
                                "bench_serve": launches_bench,
-                               "bench_http": launches_http},
+                               "bench_http": launches_http}, **k4,
               "bench_serve": bench, "pinned": summary("pinned"),
               "pageable": summary("pageable"),
               "bench_http": {"bodies": source, **http},
@@ -1764,6 +1808,20 @@ def check_match_case(case: kernel_cases.MatchCase, name: str,
                             "from one IoU pass"})
     emit(row)
     return row
+
+
+def phase_conv_s8(power_line: str) -> dict:
+    """K4 through ``tools/bench_conv_s8.main`` on the benchmark cell's
+    configuration, with every shipped config's forward checked (module
+    docstring); returns its result."""
+    out = bench_conv_s8.main(
+        ["--config", os.path.join(ROOT, "bench_port", "configs",
+                                  "ssd_mnv1_fpn_640.json"), "--models"],
+        emit=lambda row: emit({**row, "phase": "conv_s8." + row["phase"]}))
+    emit({"phase": "conv_s8", "nvidia_smi": power_line,
+          "forward_k4_ms": out["summary"]["forward_k4_ms"],
+          "launches": out["counts"]["launches"]})
+    return out
 
 
 def phase_match() -> dict:
@@ -2430,9 +2488,11 @@ def phase_tiled(power_line: str) -> int:
     tiler.predict(image)  # the bucket of 64 warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nms_cuda.launches = 0
+    nms_cuda.launches = conv_s8_cuda.launches = 0
     times, out = _host_ms(lambda: tiler.predict(image), 5)
-    launches = nms_cuda.launches
+    launches, k4 = nms_cuda.launches, conv_s8_cuda.launches
+    k4 = k4_count(pred.detector, image[None, :640, :640], k4, launches,
+                  "tiled")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if launches != 5:
         raise AssertionError(f"{launches} NMS launches for 5 tiled images")
@@ -2452,7 +2512,7 @@ def phase_tiled(power_line: str) -> int:
           "candidates": int(len(cand[1])),
           "valid_candidates": int((cand[1] > 0).sum()),
           "num_boxes": int(out["num_boxes"]), "nms_launches": launches,
-          "image_ms": times, "p50_image_ms": float(np.median(times)),
+          **k4, "image_ms": times, "p50_image_ms": float(np.median(times)),
           "predict_and_map_ms": float(np.median(cand_ms)),
           "merge_ms_card": float(np.median(merge_ms)),
           "merge_ms_cpu": cpu_ms[0], "merge_share": float(
@@ -2674,14 +2734,16 @@ def stream_run(cfg: Config, pool: list, power_line: str) -> dict:
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    nms_cuda.launches = 0
+    nms_cuda.launches = conv_s8_cuda.launches = 0
     results = []
     t0 = time.perf_counter()
     for i in range(STREAM_FRAMES):
         results.extend(stream.push(pool[i % len(pool)]))
     results.extend(stream.flush())
     wall = time.perf_counter() - t0
-    launches = nms_cuda.launches
+    launches, k4 = nms_cuda.launches, conv_s8_cuda.launches
+    k4 = k4_count(stream.detector, pool[0][None], k4, launches,
+                  f"streaming {cfg.model.compute_dtype}")
     stats = stream.stats()
     if len(results) != STREAM_FRAMES or launches != STREAM_FRAMES:
         raise AssertionError(f"streaming: {len(results)} results, "
@@ -2731,7 +2793,7 @@ def stream_run(cfg: Config, pool: list, power_line: str) -> dict:
             "host_push_ms": push_ms,
             "profiled_fps": STREAM_PROFILED / summary["wall_ms"] * 1e3,
             "device_idle_share": idle,
-            "staging_wait_ms": staging_ms, "nms_launches": launches,
+            "staging_wait_ms": staging_ms, "nms_launches": launches, **k4,
             "num_boxes_mean": float(np.mean([r["num_boxes"]
                                              for r in results])),
             "equal_to_predictor": True, "warmup_s": warmup_s,
@@ -2804,13 +2866,15 @@ def phase_export(power_line: str) -> int:
             _hold_k1(*det.candidates(batch), cfg,
                      f"export b{EXPORT_BATCH} {cfg.model.compute_dtype}")
             torch.cuda.synchronize()
-            nms_cuda.launches = 0
+            nms_cuda.launches = conv_s8_cuda.launches = 0
             got = program(batch)
             torch.cuda.synchronize()
-            n = nms_cuda.launches
+            n, k4 = nms_cuda.launches, conv_s8_cuda.launches
             if n != 1:
                 raise AssertionError(f"the loaded program launched K1 {n} "
                                      "times")
+            k4 = k4_count(det, batch[:1], k4, 1,
+                          f"export {cfg.model.compute_dtype}")
             launches += n
             for k in DET_KEYS:
                 if not torch.equal(got[k], getattr(want, k)):
@@ -2848,7 +2912,8 @@ def phase_export(power_line: str) -> int:
                          "eager_device": device_work(det.predict),
                          "num_boxes_mean": float(
                              got["num_boxes"].float().mean()),
-                         "bit_equal_to_eager": True, "nms_launches": n})
+                         "bit_equal_to_eager": True, "nms_launches": n,
+                         **k4})
             del pred, det, program
             torch.cuda.empty_cache()
     finally:
@@ -3752,6 +3817,22 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "scaleout_m11b"]:  # that phase alone
         phase_scaleout_m11b(power_line)
         return 0
+    if sys.argv[1:] == ["--phase", "conv_s8"]:  # that phase alone
+        phase_conv_s8(power_line)
+        return 0
+    if sys.argv[1:] == ["--phase", "int8"]:  # the phases that serve int8
+        phase_int8_sanity(power_line)
+        phase_gemm_exact(power_line)
+        phase_serve("int8_flagship", FLAGSHIP, power_line, int8=True)
+        for name, (path, batch) in NEW_CONFIGS.items():
+            phase_serve(f"int8_{name}", os.path.join(ROOT, "configs", path),
+                        power_line, int8=True, batch=batch)
+        phase_serve_pipelined(power_line)
+        phase_tiled(power_line)
+        phase_streaming(power_line)
+        phase_export(power_line)
+        phase_conv_s8(power_line)
+        return 0
     if sys.argv[1:] == ["--phase", "tools_m12"]:  # that phase alone
         phase_tools_m12(power_line)
         return 0
@@ -3787,6 +3868,7 @@ def main() -> int:
     nms_launches_new.update(phase_streaming(power_line))
     nms_launches_new["export"] = phase_export(power_line)
     main_early, early_launches = phase_fused_early(power_line)
+    main_conv = phase_conv_s8(power_line)
     main_match = phase_match()
     phase_train_sanity()
     match_launches, flagship_p50 = phase_train_flagship(power_line)
@@ -3865,7 +3947,21 @@ def main() -> int:
         **{k: main_early[k] for k in (
             "bound_bytes_ms", "bound_operations_ms", "bound_depthwise_f32_ms",
             "bound_pointwise_bf16_ms", "bound_f32_ms")},
-        "library_ms": None, "ptxas": ptxas.get("fused_early")}]})
+        "library_ms": None, "ptxas": ptxas.get("fused_early")}, {
+        "name": "conv_s8", "route": "cuda",
+        "source": "ssd_tpu_torch/csrc/conv_s8.cu",
+        "replaces": None, "replaces_note": "no TPU kernel: the JAX package "
+        "leaves its int8 convs to XLA (ssd_tpu/models/layers.py "
+        "_quantized_conv); it replaces the port's im2col + _int_mm "
+        "composition, kept as the plain version",
+        "launches": main_conv["counts"]["launches"],
+        "forward_ms": main_conv["summary"]["forward_k4_ms"],
+        "forward_bound_ms": main_conv["summary"]["forward_bound_ms"],
+        "by_shape": main_conv["shapes"],
+        "models_bit_equal": [m["config"] for m in main_conv["models"]],
+        "library_ms": {"torch._int_mm on the im2col": sum(
+            r["library_ms"] * r["count"] for r in main_conv["shapes"])},
+        "ptxas": ptxas.get("conv_s8")}]})
     print(power_line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,15 @@ single-file ``.npz`` (``convert.save_npz_artifact``) loads too.
 ``export_program`` is ``torch.export`` of ``Detector.predict`` at one
 (batch, resolution), weights included, saved as
 ``predict_b{B}_{H}x{W}.pt2``; ``load_program`` runs it without the model
-code or the config. Its one dependency besides torch is the suppression
-operator ``ssd_tpu_torch::nms_suppress`` (``ops/nms_cuda.py``), which
-``load_program`` registers by importing that module: K1 launches through
-ctypes, which ``torch.export`` cannot trace, so the program calls the
-operator and the operator the kernel (the plain version on the CPU). A
-StableHLO program needs only jax; this one needs torch and that module.
+code or the config. Its dependencies besides torch are the suppression
+operator ``ssd_tpu_torch::nms_suppress`` (``ops/nms_cuda.py``) and, in an
+int8 program, the conv operator ``ssd_tpu_torch::conv_s8``
+(``ops/conv_s8_cuda.py``), which ``load_program`` registers by importing
+those modules: K1 and K4 launch through ctypes, which ``torch.export``
+cannot trace, so the program calls the operators and the operators the
+kernels (the plain versions on the CPU). An int8 program holds its conv
+weights quantized and packed, as constants (``layers.prepared_buffers``).
+A StableHLO program needs only jax; this one needs torch and those modules.
 A TensorFlow SavedModel (``export_savedmodel``) has no counterpart: the
 port does not import TensorFlow.
 
@@ -42,6 +45,7 @@ from torch import nn
 from ssd_tpu_torch.config import Config
 from ssd_tpu_torch.convert import (check_scales, load_label_map,
                                    load_npz_artifact)
+from ssd_tpu_torch.models import layers
 from ssd_tpu_torch.models.detector import Detector, select_for_nms
 from ssd_tpu_torch.ops.postprocess import run_nms
 
@@ -150,7 +154,8 @@ def export_program(path: str, cfg: Config, state: dict | None,
     program = PredictProgram(Detector(cfg, state, device=device))
     spec = torch.zeros((batch_size, *cfg.image_hw(), 3), dtype=torch.uint8,
                        device=program.anchors.device)
-    exported = torch.export.export(program, (spec,))
+    with layers.prepared_buffers(program):  # int8 weights as constants
+        exported = torch.export.export(program, (spec,))
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, "predict_b{}_{}x{}.pt2".format(
         batch_size, *cfg.image_hw()))
@@ -162,7 +167,8 @@ def load_program(file: str):
     """Load an exported predict program. Returns ``fn(images) -> {boxes,
     scores, labels, num_boxes}``: ``images`` uint8 numpy or a tensor of the
     exported shape; the outputs are tensors on the program's device."""
-    from ssd_tpu_torch.ops import nms_cuda  # noqa: F401  (the operator)
+    from ssd_tpu_torch.ops import conv_s8_cuda, nms_cuda  # noqa: F401
+    # (the operators)
 
     program = torch.export.load(file)
     device = program.state_dict["anchors"].device

@@ -9,11 +9,15 @@ with ``param_dtype=float32`` and ``dtype=compute_dtype``. Module and
 parameter names follow the flax tree (``conv``, ``bn``, ``gn``,
 ``depthwise``, ``pointwise``), so ``convert.py`` maps one to the other by path.
 
-int8 (``compute_dtype="int8"``, inference only): every dense conv runs
-s8 x s8 -> s32 through ``torch._int_mm`` (cuBLASLt's integer GEMM on the
-card) over an im2col of the quantized NHWC input, then dequantizes in f32;
-depthwise convs, norms and activations run in bf16. Integer sums are exact
-in any order, so the s32 products equal the JAX package's bit for bit.
+int8 (``compute_dtype="int8"``, inference only): every dense conv is one
+call of ``ops/conv_s8_cuda.conv_s8`` (the operator
+``ssd_tpu_torch::conv_s8``): on the card one launch of K4, the
+hand-written implicit-GEMM s8 kernel with the quantize in its loads and the
+dequantize in its epilogue; on the CPU its plain version here,
+``conv_s8_plain``: the quantized NHWC input's im2col, s8 x s8 -> s32
+through ``torch._int_mm``, then the f32 dequantize. Depthwise convs, norms
+and activations run in bf16. Integer sums are exact in any order, so the s32
+products equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ssd_tpu_torch.constants import BATCH_NORM_EPSILON, BATCH_NORM_MOMENTUM
+from ssd_tpu_torch.ops import conv_s8_cuda
 from ssd_tpu_torch.parallel import spatial
 from ssd_tpu_torch.parallel.mesh import all_reduce_mean, local, step_group
 from ssd_tpu_torch.parallel.spatial import same_pad  # noqa: F401
@@ -390,27 +395,38 @@ def quantize_activation(x: torch.Tensor, a_scale: torch.Tensor,
     return torch.clamp(xq, -INT8_MAX, INT8_MAX).to(torch.int8).contiguous()
 
 
-def im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """NHWC ``(N, H, W, C)`` -> ``(N, Ho, Wo, k*k*C)``: the ``k x k`` taps of
-    each SAME-padded output gathered along channels in ``(dy, dx, c)``
-    order. A 1x1 stride-1 conv needs none: ``x`` comes back as it is.
-    (``F.unfold`` has no int8 kernel.) Inside a height split the padding
-    is the whole map's (``parallel.spatial``)."""
-    if kernel == 1 and stride == 1:
-        return x
+def same_geometry(x: torch.Tensor, kernel: int, stride: int
+                  ) -> tuple[torch.Tensor, tuple, tuple[int, int]]:
+    """What a SAME ``kernel x kernel`` window op of ``stride`` reads from
+    the NCHW ``x``: ``(rows, (top, bottom, left, right) padding, (out_h,
+    out_w))``. Inside a height split (``parallel.spatial``) ``rows`` are
+    this strip's outputs' rows with their halo and the padding is the
+    whole map's."""
     strips = spatial.current()
-    if strips is not None:  # a strip of rows, the whole map's padding
-        x, ph, rows = strips.halo(x, kernel, stride, dim=1)
-        ho = rows[1] - rows[0]
+    if strips is not None:
+        x, ph, rows = strips.halo(x, kernel, stride)
+        ho = x.shape[2] if rows is None else rows[1] - rows[0]
     else:
-        ph = same_pad(x.shape[1], kernel, stride)
-        ho = -(-x.shape[1] // stride)
-    w = x.shape[2]
-    pw, wo = same_pad(w, kernel, stride), -(-w // stride)
-    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+        ph = same_pad(x.shape[2], kernel, stride)
+        ho = -(-x.shape[2] // stride)
+    w = x.shape[3]
+    return x, (*ph, *same_pad(w, kernel, stride)), (ho, -(-w // stride))
+
+
+def im2col_padded(x: torch.Tensor, kh: int, kw: int, stride: int,
+                  pads: tuple, out_hw: tuple[int, int]) -> torch.Tensor:
+    """NHWC ``(N, H, W, C)`` padded by ``pads`` (top, bottom, left, right)
+    -> ``(N, Ho, Wo, kh*kw*C)``: the taps of each output gathered along
+    channels in ``(dy, dx, c)`` order. A 1x1 stride-1 window with no
+    padding needs none: ``x`` comes back as it is. (``F.unfold`` has no
+    int8 kernel.)"""
+    if kh == kw == stride == 1 and not any(pads):
+        return x
+    ho, wo = out_hw
+    xp = F.pad(x, (0, 0, pads[2], pads[3], pads[0], pads[1]))
     taps = [xp[:, dy:dy + stride * (ho - 1) + 1:stride,
                dx:dx + stride * (wo - 1) + 1:stride]
-            for dy in range(kernel) for dx in range(kernel)]
+            for dy in range(kh) for dx in range(kw)]
     return torch.cat(taps, dim=-1)
 
 
@@ -432,13 +448,39 @@ def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv_int8(x_q: torch.Tensor, k_q: torch.Tensor,
               stride: int) -> torch.Tensor:
-    """SAME conv of the s8 NHWC input with the s8 OIHW kernel -> s32 NHWC,
-    one product over the im2col."""
-    o, c, k, _ = k_q.shape
-    cols = im2col(x_q, k, stride)
-    n, ho, wo, _ = cols.shape
-    w = k_q.permute(0, 2, 3, 1).reshape(o, k * k * c)
-    return int_mm(cols.reshape(-1, k * k * c), w).reshape(n, ho, wo, o)
+    """SAME conv of the s8 NHWC input with the s8 OIHW kernel -> s32 NHWC:
+    ``conv_s8`` with the raw sums (K4 on the card; on the CPU one product
+    over the im2col). Inside a height split, this strip's output rows."""
+    o, c, kh, kw = k_q.shape
+    rows, pads, out_hw = same_geometry(x_q.permute(0, 3, 1, 2), kh, stride)
+    return conv_s8_cuda.conv_s8(rows, conv_s8_cuda.pack_weight(k_q),
+                                [o, c, kh, kw, stride, *pads, *out_hw])
+
+
+def conv_s8_plain(x: torch.Tensor, w: torch.Tensor, geometry: list,
+                  k_scale: torch.Tensor | None = None,
+                  bias: torch.Tensor | None = None,
+                  a_scale: torch.Tensor | None = None,
+                  reciprocal: torch.Tensor | None = None) -> torch.Tensor:
+    """K4's plain version, on the kernel's arguments
+    (``ops/conv_s8_cuda.conv_s8``): a bf16 NCHW ``x`` quantized by ``a =
+    max(a_scale, 1e-8)`` (or ``reciprocal``), its im2col times the
+    unpacked ``w`` through ``int_mm`` (s32), dequantized by ``a * k_scale``
+    plus ``bias`` to bf16; an s8 ``x`` -> the raw s32 sums. Out ``(N, Ho,
+    Wo, O)``."""
+    o, c, kh, kw, stride, *pads, ho, wo = geometry
+    if x.dtype == torch.int8:
+        x_q = x.permute(0, 2, 3, 1)
+    else:
+        a_scale = torch.clamp_min(a_scale, SCALE_FLOOR)
+        x_q = quantize_activation(x, a_scale, reciprocal)
+    cols = im2col_padded(x_q, kh, kw, stride, pads, (ho, wo))
+    y = int_mm(cols.reshape(-1, kh * kw * c),
+               conv_s8_cuda.unpack_weight(w, o, c, kh, kw))
+    y = y.reshape(x.shape[0], ho, wo, o)
+    if k_scale is None:
+        return y
+    return dequantize(y, a_scale * k_scale, bias)
 
 
 def dequantize(y: torch.Tensor, scale: torch.Tensor,
@@ -493,6 +535,13 @@ def percentile(x: torch.Tensor, p: float) -> torch.Tensor:
     return torch.tensor(out, device=x.device)
 
 
+def _tracing(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor of a ``torch.export`` or compile
+    trace (it has no data to cache)."""
+    return (isinstance(t, torch._subclasses.fake_tensor.FakeTensor)
+            or torch.compiler.is_compiling())
+
+
 @dataclasses.dataclass(frozen=True)
 class Calibration:
     """A calibration pass: each ``QuantConv`` records ``max|x| / 127``
@@ -533,7 +582,9 @@ class QuantConv(Conv):
     else the static ``act_range / 127``. Calibrated scales are state: they
     load from and save to the state dict under the conv's path.
 
-    In train mode the float conv runs (int8 is an inference lowering); in
+    In eval mode the conv is one ``conv_s8_cuda.conv_s8`` call (K4 on the
+    card) on the weights ``prepared`` once per weight version. In train
+    mode the float conv runs (int8 is an inference lowering); in
     calibration mode (``calibrating``) the plain bf16 conv runs, the bias
     added in bf16.
     """
@@ -551,13 +602,19 @@ class QuantConv(Conv):
         self.register_buffer("static_reciprocal",
                              torch.tensor(np.float32(1.0) / static),
                              persistent=False)
+        self._prepared = self._prepared_key = self._prepared_from = None
 
     def act_scale(self, x: torch.Tensor) -> torch.Tensor | None:
         """The calibrated activation scale for input ``x`` (0-dim f32, on
         its device); ``None``: the static scale serves."""
+        scale = self._calibrated(x)
+        return None if scale is None else torch.clamp_min(scale, SCALE_FLOOR)
+
+    def _calibrated(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The calibrated scale's buffer for input ``x``, not floored."""
         scale = self._buffers.get(scale_key(x))
         if scale is not None:
-            return torch.clamp_min(scale, SCALE_FLOOR)
+            return scale
         if self.require_scale:
             raise ValueError(
                 f"int8 conv {self.path!r} needs a calibrated activation "
@@ -567,25 +624,44 @@ class QuantConv(Conv):
                 "ssd_tpu_torch.quant (see ssd_tpu_torch/quant.py).")
         return None
 
-    def product(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> ``(y s32 NHWC, a_scale * k_scale (O,) f32)``: the integer
-        product and its dequantization scale."""
-        a_scale = self.act_scale(x)
-        if a_scale is None:
-            a_scale = self.static_scale
-            x_q = quantize_activation(x, a_scale, self.static_reciprocal)
-        else:
-            x_q = quantize_activation(x, a_scale)
-        k_q, k_scale = quantize_weight(self.weight)
-        return conv_int8(x_q, k_q, self.stride), a_scale * k_scale
+    def prepared(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The weights as K4 takes them, ``(packed k_q, k_scale)``
+        (``conv_s8_cuda.prepare_weight``), made once per weight version:
+        kept while the weight's data pointer, version counter and device
+        stay (``load_state_dict``, an in-place edit and ``.to()`` each make
+        them again; the weight they were made from is held, so that its
+        address cannot pass to another tensor while they are kept). A
+        weight made in inference mode has no version counter: its weights
+        are prepared at every call. While ``torch.export`` traces, they are
+        the buffers ``prepared_buffers`` gives (the program's constants)."""
+        w = self.weight
+        if _tracing(w):
+            return self.packed_weight, self.packed_scale
+        if w.is_inference():
+            return conv_s8_cuda.prepare_weight(w.detach())
+        key = (w.data_ptr(), w._version, w.device)
+        if self._prepared_key != key:
+            self._prepared = conv_s8_cuda.prepare_weight(w.detach())
+            self._prepared_key, self._prepared_from = key, w.detach()
+        return self._prepared
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return super().forward(x)
         if self.calibration is not None:
             return self._calibrate(x)
-        y, scale = self.product(x)
-        return dequantize(y, scale, self.bias).permute(0, 3, 1, 2)
+        a_scale = self._calibrated(x)
+        reciprocal = None
+        if a_scale is None:
+            a_scale, reciprocal = self.static_scale, self.static_reciprocal
+        w, k_scale = self.prepared()
+        o, c, kh, kw = self.weight.shape
+        rows, pads, out_hw = same_geometry(x, kh, self.stride)
+        bias = None if self.bias is None else self.bias.detach()
+        y = conv_s8_cuda.conv_s8(
+            rows, w, [o, c, kh, kw, self.stride, *pads, *out_hw], k_scale,
+            bias, a_scale, reciprocal)
+        return y.permute(0, 3, 1, 2)
 
     def _calibrate(self, x: torch.Tensor) -> torch.Tensor:
         ax = x.float().abs()
@@ -614,6 +690,26 @@ class QuantConv(Conv):
         for k, v in mine.items():
             self.register_buffer(k[len(prefix):], v.detach().to(
                 self.weight.device, torch.float32).reshape(()).clone())
+
+
+@contextlib.contextmanager
+def prepared_buffers(model: nn.Module):
+    """Within: every ``QuantConv`` of ``model`` holds its ``prepared``
+    weights as the non-persistent buffers ``packed_weight`` and
+    ``packed_scale``, which a ``torch.export`` trace records as the
+    program's constants (``export.export_program``): the program then
+    neither quantizes nor packs a weight when it runs."""
+    convs = [m for m in model.modules() if isinstance(m, QuantConv)]
+    with torch.no_grad():
+        for m in convs:
+            w, k_scale = m.prepared()
+            m.register_buffer("packed_weight", w, persistent=False)
+            m.register_buffer("packed_scale", k_scale, persistent=False)
+    try:
+        yield
+    finally:
+        for m in convs:
+            del m._buffers["packed_weight"], m._buffers["packed_scale"]
 
 
 class ConvBN(nn.Module):

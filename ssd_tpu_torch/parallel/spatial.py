@@ -13,7 +13,8 @@ device-to-device copy where the devices differ. No process group is
 involved. The ops that do so, with their sites:
 
 * SAME convs (``layers.Conv``, the dense4 stem ``FoldedS2DConv`` and its
-  int8 form, ``layers.im2col``) and ``layers.max_pool_same`` (``Strips.
+  int8 form, the int8 convs through ``layers.same_geometry``) and
+  ``layers.max_pool_same`` (``Strips.
   halo``): the padding is the whole image's. A strip of rows ``[r0, r1)``
   computes the output rows ``o`` with ``s * o`` in it, ``[ceil(r0 / s),
   ceil(r1 / s))``, so a stride-2 strip starts on the stride's phase and its

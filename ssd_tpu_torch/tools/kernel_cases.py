@@ -1,11 +1,14 @@
-"""Inputs that hold the NMS kernel (``csrc/nms.cu``) and the matching kernel
-(``csrc/match.cu``) to their plain versions.
+"""Inputs that hold the NMS kernel (``csrc/nms.cu``), the matching kernel
+(``csrc/match.cu``) and the int8 conv (``csrc/conv_s8.cu``) to their plain
+versions.
 
 ``chip_smoke.py`` runs every case on the card, kernel against plain, at the
-main paths' shapes; ``tests/test_torch_kernel_cases.py`` runs the same
-cases on the CPU at small sizes, the plain versions against the JAX
-package. Every case is numpy, made from a seed. This module imports numpy
-only.
+main paths' shapes; ``tests/test_torch_kernel_cases.py`` runs the NMS and
+matching cases on the CPU at small sizes, the plain versions against the
+JAX package, and every case on the card, kernel against plain. Every case
+is numpy, made from a seed (a conv case is its shapes and seed; the tensors
+are drawn by ``tools/bench_conv_s8.case_inputs``). This module imports
+numpy only.
 """
 
 from __future__ import annotations
@@ -20,9 +23,15 @@ NMS_CASES = ("serve", "k100", "k512", "all_empty", "chain", "k1", "k32",
 MATCH_CASES = ("crowded", "no_gts", "duplicates", "no_overlap", "m1", "m13",
                "no_force_match", "dup_anchors", "edge_on_bound",
                "outside_unit")
+CONV_CASES = ("stem_3x3s2_c3", "stem_7x7s2_c3", "pw_1x1_c48_n256",
+              "pw_1x1s2_static", "p7_m25_b1", "box_n36", "class_n720",
+              "p3_head_b32", "nchw_3x3s2_odd", "strip_top", "strip_mid_s2",
+              "s8_raw_c48", "s8_raw_nchw_s2", "odd_o_c24", "c12_scalar",
+              "tiny_scale")
 # the seeds of the cases' own draws
 NMS_SEED = 0
 MATCH_SEED = 2
+CONV_SEED = 4
 
 
 class NMSCase(NamedTuple):
@@ -31,6 +40,22 @@ class NMSCase(NamedTuple):
     scores: np.ndarray  # (N, Q, C) f32
     cfg: dict           # the NMSConfig fields the case sets
     kept: int | None    # candidates greedy NMS keeps, where the case fixes it
+
+
+class ConvCase(NamedTuple):
+    name: str
+    n: int              # images
+    c: int              # input channels
+    hw: tuple           # the whole map's (H, W)
+    o: int              # output channels
+    k: int              # kernel (k x k)
+    stride: int
+    dtype: str          # "bf16" (quantized in the load) or "s8"
+    layout: str         # "channels_last" or "nchw" (contiguous)
+    scale: float | None  # calibrated activation scale; None: the static one
+    bias: bool
+    strip: tuple | None  # (r0, r1): a height strip's rows of the map
+    seed: int
 
 
 class MatchCase(NamedTuple):
@@ -210,4 +235,47 @@ def match_cases(anchors: np.ndarray, boxes: np.ndarray,
                   True),
     ]
     assert tuple(x.name for x in cases) == MATCH_CASES
+    return cases
+
+
+# ---------------------------------------------------------------- int8 conv
+
+def conv_cases() -> list[ConvCase]:
+    """The int8 conv's cases: kernels 1, 3 and 7, strides 1 and 2, C from 3
+    to 256 (3, 48 and 256 among them), O from 7 to 720 (36, 256 and 720
+    among them), M from 25 (a P7 map at b1) to one P3 head map at b32
+    (204 800), two height strips (the top one, with the whole map's
+    padding; a middle one at stride 2), static and calibrated scales (one
+    under the 1e-8 floor), bias and none, bf16 and s8 input in
+    channels_last and NCHW-contiguous memory, the raw s32 epilogue (every
+    s8 case), odd O and channels the 16-byte loads do not take."""
+    def case(name, n, c, hw, o, k, stride, dtype="bf16",
+             layout="channels_last", scale=0.05, bias=True, strip=None):
+        return ConvCase(name, n, c, hw, o, k, stride, dtype, layout,
+                        None if dtype == "s8" else scale,
+                        bias and dtype != "s8", strip,
+                        CONV_SEED + CONV_CASES.index(name))
+    cases = [
+        case("stem_3x3s2_c3", 2, 3, (96, 128), 32, 3, 2, scale=None,
+             bias=False),
+        case("stem_7x7s2_c3", 2, 3, (64, 80), 64, 7, 2, scale=None,
+             bias=False),
+        case("pw_1x1_c48_n256", 2, 48, (40, 40), 256, 1, 1),
+        case("pw_1x1s2_static", 2, 32, (20, 30), 64, 1, 2, scale=None,
+             bias=False),
+        case("p7_m25_b1", 1, 256, (5, 5), 256, 3, 1),
+        case("box_n36", 4, 256, (20, 20), 36, 3, 1),
+        case("class_n720", 4, 256, (10, 10), 720, 3, 1),
+        case("p3_head_b32", 32, 256, (80, 80), 256, 3, 1),
+        case("nchw_3x3s2_odd", 2, 64, (33, 47), 64, 3, 2, layout="nchw"),
+        case("strip_top", 2, 64, (48, 40), 128, 3, 1, strip=(0, 16)),
+        case("strip_mid_s2", 2, 64, (48, 40), 128, 3, 2, strip=(17, 33)),
+        case("s8_raw_c48", 2, 48, (40, 48), 128, 3, 1, dtype="s8"),
+        case("s8_raw_nchw_s2", 2, 16, (21, 19), 40, 3, 2, dtype="s8",
+             layout="nchw"),
+        case("odd_o_c24", 2, 24, (12, 20), 7, 3, 1),
+        case("c12_scalar", 2, 12, (16, 16), 24, 3, 1, bias=False),
+        case("tiny_scale", 2, 16, (8, 8), 32, 1, 1, scale=1e-9),
+    ]
+    assert tuple(c.name for c in cases) == CONV_CASES
     return cases

@@ -12,7 +12,9 @@ op by op, under a ``TorchDispatchMode``:
   ``torch.utils.flop_counter``'s formulas, split into classes by the peak
   that serves them: ``bf16`` (bf16/f16 convs and products), ``f32`` (f32
   ones: the port turns TF32 off), ``depthwise`` (grouped convs, which no
-  tensor core serves) and ``int8`` (``torch._int_mm``, 2 M K N). The total
+  tensor core serves) and ``int8`` (``torch._int_mm`` and the int8 conv's
+  operator ``ssd_tpu_torch::conv_s8``, K4 on the card, each 2 M K N with
+  K the conv's unpadded depth). The total
   is ``FlopCounterMode``'s for the same call, but for one term: that
   formula ignores ``groups`` in a grouped conv's weight gradient, counting
   it ``groups`` times over (C times for a depthwise conv), and this one
@@ -48,6 +50,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import conv_flop_count, flop_registry
 
 from ssd_tpu_torch.config import Config
+from ssd_tpu_torch.ops import conv_s8_cuda  # noqa: F401  (the operator)
 
 # H100 SXM data sheet: HBM rate, f32 (non-tensor-core) peak, dense bf16 and
 # int8 tensor-core peaks
@@ -60,6 +63,7 @@ PEAKS = {"bf16": BF16_TENSOR_FLOP_PER_S, "f32": F32_FLOP_PER_S,
 CHIP = "H100 SXM"
 
 _aten = torch.ops.aten
+_CONV_S8 = torch.ops.ssd_tpu_torch.conv_s8
 _CONVS = {_aten.convolution: 8, _aten.convolution_backward: 9}  # groups arg
 _SKIP_BYTES = {_aten.empty, _aten.empty_like, _aten.empty_strided,
                _aten.detach, _aten.lift_fresh}
@@ -105,7 +109,8 @@ class CostCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         packet = func._overloadpacket
-        if packet not in flop_registry and packet is not _aten._int_mm:
+        if packet not in flop_registry and packet not in (_aten._int_mm,
+                                                          _CONV_S8):
             # a composite op (conv2d under inference mode, linear) runs as
             # its parts, so that the counted ops below it are seen, as
             # FlopCounterMode does
@@ -117,6 +122,10 @@ class CostCounter(TorchDispatchMode):
         if packet is _aten._int_mm:
             (m, k), n = args[0].shape, args[1].shape[1]
             self.flops["int8"] += 2 * m * k * n
+        elif packet is _CONV_S8:  # x, w, geometry: O, C, kh, kw ... Ho, Wo
+            o, c, kh, kw = args[2][:4]
+            m = args[0].shape[0] * args[2][-2] * args[2][-1]
+            self.flops["int8"] += 2 * m * (kh * kw * c) * o
         elif packet in flop_registry:
             n = flop_registry[packet](*args, **kwargs, out_val=out)
             first = next(t for t in tree_flatten(args)[0]

@@ -7,6 +7,12 @@ inputs (seeded numpy), with the bar stated at each:
   N = 36, M < 17, static and calibrated scales): the s32 product and the
   bf16 output bit-equal to JAX's; the padded GEMM equal to unpadded int32
   sums;
+* the int8 conv's operator (``ops/conv_s8_cuda.conv_s8``, whose CPU path is
+  the plain version of the card's kernel): with explicit padding over
+  height strips equal to the implicit-padding im2col under strips; the
+  weights it takes prepared once per weight version, again after
+  ``load_state_dict``, an in-place edit and ``.to()``; its argument
+  checks; an exported int8 program records it, its weights as constants;
 * the int8 dense4 stem on both feeds;
 * a few-layer int8 model with and without ``int8_neck``, from JAX's
   calibrated scales;
@@ -32,6 +38,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 if __name__ == "__main__":  # regen: JAX on the CPU, as tests/conftest.py sets
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -67,8 +74,14 @@ from ssd_tpu_torch.eval.coco_map import DetectionEvaluator  # noqa: E402
 from ssd_tpu_torch.export import \
     load_inference_artifact as load_artifact  # noqa: E402
 from ssd_tpu_torch.models.detector import Detector  # noqa: E402
-from ssd_tpu_torch.models.layers import (QuantConv, int_mm,  # noqa: E402
-                                         percentile)
+from ssd_tpu_torch.models.layers import (QuantConv, conv_int8,  # noqa: E402
+                                         int_mm, percentile,
+                                         quantize_activation,
+                                         quantize_weight, same_pad)
+from ssd_tpu_torch.ops import conv_s8_cuda  # noqa: E402
+from ssd_tpu_torch.parallel import spatial  # noqa: E402
+from ssd_tpu_torch.parallel.spatial import SpatialRunner  # noqa: E402
+from ssd_tpu_torch import export  # noqa: E402
 from ssd_tpu_torch.models.mobilenet import Int8FoldedS2DConv  # noqa: E402
 from ssd_tpu_torch.ops.ingest import pack_s2d  # noqa: E402
 from ssd_tpu_torch.predictor import Predictor  # noqa: E402
@@ -159,7 +172,11 @@ def test_quant_conv_bit_equal_to_jax(case):
     conv.load_state_dict(state, strict=True)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16)
     with torch.inference_mode():
-        got_int, _ = conv.product(xt)
+        a_scale, reciprocal = conv.act_scale(xt), None
+        if a_scale is None:
+            a_scale, reciprocal = conv.static_scale, conv.static_reciprocal
+        got_int = conv_int8(quantize_activation(xt, a_scale, reciprocal),
+                            quantize_weight(conv.weight)[0], s)
         got = conv(xt)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got_int.numpy(), want_int)
@@ -187,6 +204,199 @@ def test_padded_int_mm_equals_int32_sums(mkn):
     ext = torch.full((m, k), 127, dtype=torch.int8)
     sign = torch.from_numpy(rng.choice([-127, 127], (n, k)).astype(np.int8))
     assert torch.equal(int_mm(ext, sign), ext.int() @ sign.int().t())
+
+
+# ------------------------------------------------- the int8 conv's operator
+
+def _implicit_im2col(x, kernel: int, stride: int):
+    """``layers.im2col`` as it was before the padding became explicit, the
+    halo taken on the NHWC strip: the reference the explicit padding is
+    held to."""
+    if kernel == 1 and stride == 1:
+        return x
+    strips = spatial.current()
+    if strips is not None:
+        x, ph, rows = strips.halo(x, kernel, stride, dim=1)
+        ho = rows[1] - rows[0]
+    else:
+        ph = same_pad(x.shape[1], kernel, stride)
+        ho = -(-x.shape[1] // stride)
+    w = x.shape[2]
+    pw, wo = same_pad(w, kernel, stride), -(-w // stride)
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    taps = [xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+               dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(kernel) for dx in range(kernel)]
+    return torch.cat(taps, dim=-1)
+
+
+def _in_strips(strips: int, x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` on each of ``strips`` near-equal row strips of the NCHW
+    ``x``, each in its strip's thread; the outputs joined along rows (dim
+    1: the operator's NHWC)."""
+    h = x.shape[2]
+    sizes = [h // strips + (i < h % strips) for i in range(strips)]
+    runner = SpatialRunner(["cpu"] * strips)
+    try:
+        return torch.cat(runner.run(lambda j, p: fn(p),
+                                    list(torch.split(x, sizes, 2))), 1)
+    finally:
+        runner.pool.shutdown()
+
+
+def _quant_conv(cin: int, cout: int, k: int, s: int, seed: int,
+                bias: bool = True) -> QuantConv:
+    conv = QuantConv(cin, cout, k, s, bias=bias).eval()
+    conv.reset_parameters(torch.Generator().manual_seed(seed),
+                          bias_value=0.25)
+    return conv
+
+
+@pytest.mark.parametrize("kernel,stride,height,strips", [
+    (3, 1, 13, 3), (3, 2, 13, 3), (1, 2, 11, 4), (7, 2, 16, 3),
+    (3, 2, 3, 4), (1, 1, 5, 3)])
+def test_explicit_padding_matches_seed_im2col_in_strips(kernel, stride,
+                                                        height, strips):
+    """Over height strips, the operator's plain version (the halo'd rows,
+    the whole map's padding given explicitly) equals the implicit-padding
+    im2col under the same strips, product for product, and the whole map's
+    conv row for row; ``QuantConv`` the same, bf16 for bf16."""
+    rng = np.random.default_rng(kernel * 100 + height)
+    conv = _quant_conv(8, 16, kernel, stride, seed=height)
+    x = torch.from_numpy(rng.normal(0.0, 2.0, (2, 8, height, 10)).astype(
+        np.float32)).to(torch.bfloat16)
+    x_q = quantize_activation(x, conv.static_scale, conv.static_reciprocal)
+    k_q, _ = quantize_weight(conv.weight)
+    w2d = k_q.permute(0, 2, 3, 1).reshape(16, -1)
+
+    def implicit_product(p):
+        cols = _implicit_im2col(p.permute(0, 2, 3, 1), kernel, stride)
+        n, ho, wo, kk = cols.shape
+        return int_mm(cols.reshape(-1, kk), w2d).reshape(n, ho, wo, 16)
+
+    x_qt = x_q.permute(0, 3, 1, 2)  # NCHW view of the s8 NHWC map
+    with torch.inference_mode():
+        want = _in_strips(strips, x_qt, implicit_product)
+        got = _in_strips(strips, x_qt, lambda p: conv_int8(
+            p.permute(0, 2, 3, 1), k_q, stride))
+        whole = conv_int8(x_q, k_q, stride)
+        assert torch.equal(got, want) and torch.equal(got, whole)
+        split = _in_strips(strips, x, lambda p: conv(p).permute(0, 2, 3, 1))
+        assert torch.equal(split, conv(x).permute(0, 2, 3, 1))
+
+
+def test_weights_prepared_once_per_version():
+    """Two forwards prepare the weights once; ``load_state_dict``, an
+    in-place edit and ``.to()`` each prepare them again, and the output is
+    then a fresh module's on the same weights."""
+    conv = _quant_conv(16, 24, 3, 1, seed=1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0.0, 2.0, (2, 16, 6, 7)).astype(np.float32)).to(torch.bfloat16)
+
+    def fresh_output():
+        other = QuantConv(16, 24, 3, 1).eval()
+        other.load_state_dict(conv.state_dict())
+        return other(x)
+
+    conv_s8_cuda.preparations = 0
+    with torch.inference_mode():
+        y = conv(x)
+        assert torch.equal(conv(x), y) and conv_s8_cuda.preparations == 1
+        state = conv.state_dict()
+        state["weight"] = state["weight"] * 0.5
+        conv.load_state_dict(state)
+        y2 = conv(x)
+        assert conv_s8_cuda.preparations == 2 and not torch.equal(y2, y)
+    with torch.no_grad():
+        conv.weight.mul_(-1.0)
+    with torch.inference_mode():
+        y3 = conv(x)
+        assert conv_s8_cuda.preparations == 3
+        assert torch.equal(y3, fresh_output())  # the fresh module's own
+        assert conv_s8_cuda.preparations == 4
+    conv.to(torch.float64).to(torch.float32)  # new storage, same values
+    with torch.inference_mode():
+        assert torch.equal(conv(x), y3) and torch.equal(conv(x), y3)
+        assert conv_s8_cuda.preparations == 5
+        # moved in inference mode: no version counter, prepared every call
+        conv.to(torch.float64).to(torch.float32)
+        assert torch.equal(conv(x), y3) and torch.equal(conv(x), y3)
+        assert conv_s8_cuda.preparations == 7
+
+
+def _op_args(**change):
+    k_q = torch.zeros((8, 4, 3, 3), dtype=torch.int8)
+    args = {"x": torch.zeros((1, 4, 6, 6), dtype=torch.bfloat16),
+            "w": conv_s8_cuda.pack_weight(k_q),
+            "geometry": [8, 4, 3, 3, 1, 1, 1, 1, 1, 6, 6],
+            "k_scale": torch.ones(8), "bias": None,
+            "a_scale": torch.tensor(0.1), "reciprocal": None}
+    args.update(change)
+    return args
+
+
+ARG_FAULTS = {
+    "x_float32": (dict(x=torch.zeros((1, 4, 6, 6))), TypeError),
+    "x_3d": (dict(x=torch.zeros((4, 6, 6), dtype=torch.bfloat16)),
+             ValueError),
+    "x_channels": (dict(x=torch.zeros((1, 5, 6, 6), dtype=torch.bfloat16)),
+                   ValueError),
+    "w_dtype": (dict(w=torch.zeros((32, 64), dtype=torch.float32)),
+                TypeError),
+    "w_unpacked": (dict(w=torch.zeros((8, 36), dtype=torch.int8)),
+                   ValueError),
+    "w_strided": (dict(w=torch.zeros((64, 32), dtype=torch.int8).t()),
+                  ValueError),
+    "no_scale": (dict(a_scale=None), ValueError),
+    "scale_shape": (dict(a_scale=torch.ones(1)), TypeError),
+    "k_scale_dtype": (dict(k_scale=torch.ones(8, dtype=torch.float64)),
+                      TypeError),
+    "bias_shape": (dict(bias=torch.ones(7)), ValueError),
+    "s8_with_scales": (dict(x=torch.zeros((1, 4, 6, 6), dtype=torch.int8)),
+                       ValueError),
+    "kernel_9": (dict(geometry=[8, 4, 9, 9, 1, 4, 4, 4, 4, 6, 6]),
+                 ValueError),
+    "reads_past": (dict(geometry=[8, 4, 3, 3, 1, 1, 0, 1, 1, 6, 6]),
+                   ValueError),
+    "geometry_short": (dict(geometry=[8, 4, 3, 3, 1]), ValueError),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(ARG_FAULTS))
+def test_conv_op_argument_checks(fault):
+    """The checks both versions share raise on what the kernel does not
+    take (the CPU's plain version raises as the card's wrapper would)."""
+    change, error = ARG_FAULTS[fault]
+    with pytest.raises(error):
+        conv_s8_cuda.conv_s8(**_op_args(**change))
+    conv_s8_cuda.conv_s8(**_op_args())  # the unchanged call is taken
+
+
+def test_int8_export_records_the_conv_op(tmp_path):
+    """An exported int8 program calls ``ssd_tpu_torch::conv_s8`` with each
+    conv's prepared weights as its constants (no weight quantize in the
+    graph) and serves what eager serves."""
+    _, cfg = _configs(64, "reference", True)
+    det = Detector(cfg, device="cpu")
+    images = np.random.default_rng(8).integers(0, 256, (2, 64, 64, 3),
+                                               dtype=np.uint8)
+    quant.calibrate(det, [images])
+    state = det.model.state_dict()
+    want = det.predict(images)
+    path = export.export_program(str(tmp_path / "p"), cfg, state,
+                                 batch_size=2, device="cpu")
+    program = torch.export.load(path)
+    code = program.graph_module.code
+    convs = sum(isinstance(m, QuantConv) for m in det.model.modules())
+    assert code.count("ssd_tpu_torch.conv_s8") >= convs > 0
+    assert "_int_mm" not in code
+    packed = [k for k in program.constants if k.endswith(".packed_weight")]
+    assert len(packed) == convs
+    assert not any(isinstance(m, QuantConv) and "packed_weight" in m._buffers
+                   for m in det.model.modules())
+    got = export.load_program(path)(images)
+    for k in DET_KEYS:
+        assert torch.equal(got[k], getattr(want, k)), k
 
 
 # ------------------------------------------------------------ int8 stem

@@ -14,8 +14,13 @@ the card (``chip_smoke.py``). Here, on every case:
   within 1e-6 relative, and the matches made from its decisions equal to
   ``match_anchors_pallas``'s.
 
-The one test of the kernels themselves is marked ``cuda`` and skips
-without a card.
+The tests of the kernels themselves are marked ``cuda`` and skip without a
+card: the NMS and matching kernels against their plain versions on every
+case, and the int8 conv (``csrc/conv_s8.cu``) against its plain version,
+bit for bit, on each of ``kernel_cases.conv_cases`` (kernels 1, 3 and 7,
+strides 1 and 2, C of 3 to 256, O of 7 to 720, M from 25 to a P3 head map
+at b32, height strips, static and calibrated scales, bias and none, bf16
+and s8 input in channels_last and NCHW memory, the raw s32 epilogue).
 """
 
 import dataclasses
@@ -37,7 +42,7 @@ from ssd_tpu_torch.data import synthetic
 from ssd_tpu_torch.ops import box_utils, matching, matching_cuda, nms
 from ssd_tpu_torch.ops import nms_cuda
 from ssd_tpu_torch.ops.anchors import generate_anchors
-from ssd_tpu_torch.tools import kernel_cases
+from ssd_tpu_torch.tools import bench_conv_s8, kernel_cases
 
 # the largest K the kernel admits in a block's default 48 KB of shared
 # memory (csrc/nms.cu: 644 bytes per 32 candidates); on the card the case
@@ -190,3 +195,13 @@ def test_kernels_equal_plain_on_every_case():
             assert torch.equal(x, y), case.name
         assert torch.equal(matching_cuda.match_anchors(a, g, nb, cfg),
                            matching.match_anchors(a, g, nb, cfg)), case.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", kernel_cases.CONV_CASES)
+def test_conv_kernel_equals_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    case = {c.name: c for c in kernel_cases.conv_cases()}[name]
+    row = bench_conv_s8.check_case(case, torch.device("cuda"))
+    assert row["bit_equal"]

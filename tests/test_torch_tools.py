@@ -218,6 +218,34 @@ def test_summary_flops_scale_with_batch(summary_cfgs):
     assert 1.7 < ratio < 2.3, ratio
 
 
+def test_summary_counts_the_int8_conv(summary_cfgs):
+    """An int8 predict's ``int8`` FLOPs are 2 M K N of every int8 dense
+    conv (the operator ``ssd_tpu_torch::conv_s8``, K4 on the card), every
+    tap counted, K the conv's unpadded depth."""
+    from ssd_tpu_torch.models.detector import Detector
+    from ssd_tpu_torch.models.layers import QuantConv
+    from ssd_tpu_torch.models.mobilenet import Int8FoldedS2DConv
+    from ssd_tpu_torch.tools.summarize import CostCounter
+
+    _, cfg = summary_cfgs
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="int8", int8_neck=False))
+    det = Detector(qcfg, device="cpu")
+    want = [0]
+
+    def hook(mod, inp, y):
+        o, c, kh, kw = mod.weight.shape
+        want[0] += 2 * y.shape[0] * y.shape[2] * y.shape[3] * kh * kw * c * o
+
+    hooks = [m.register_forward_hook(hook) for m in det.model.modules()
+             if isinstance(m, (QuantConv, Int8FoldedS2DConv))]
+    with CostCounter() as counter:
+        det.predict(np.zeros((2, *qcfg.image_hw(), 3), np.uint8))
+    for h in hooks:
+        h.remove()
+    assert counter.flops["int8"] == want[0] > 0
+
+
 def _conv_taps(det, images) -> tuple[int, int]:
     """(every tap, the taps inside the image) FLOPs of ``det.predict``'s
     convolutions, from each conv's unpadded input and SAME padding."""
