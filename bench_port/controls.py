@@ -13,14 +13,16 @@ program's place:
 * an int8 serve cell: the reference's 4-bit emulation, against its 8-bit
   one (its selection, NMS and merge are the reference's own, on its own
   raw maps);
-* the bf16 train cell: the reference with its convs fake-quantized to
+* the bf16 train cells: the reference with its convs fake-quantized to
   8 bits (per tensor, each call's own range, the rounding passed straight
   through), against the float32 reference; and the fault of half the
   batch left out (the program's step on the first half of each batch's
   rows, its mean over them), planted in the program.
 
-A serve cell's ``--kinds`` may also name the faults of ``faults.py``,
-each planted in the program at the cell's own size.
+``--kinds`` may also name the faults of ``faults.py`` (a serve cell's
+``SERVING``, a data-parallel train cell's ``TRAINING``), each planted in
+the program at the cell's own size. A data-parallel cell reads every seed
+and kind in one session of its ranks.
 
 Each line: ``{"workload", "seed", "kind": "program" | "control" |
 "half_batch" | a fault, readings...}``. The benchmark's own runs do not run this.
@@ -103,16 +105,14 @@ def train_readings(cell, kind: str) -> dict:
             cell, cfg, init, pool, n, Quant(8, dynamic=True, ste=True))
         after = {k: init[k].to(cell.device) + v for k, v in change.items()}
     else:
-        half = len(pool[0]["images"]) // 2
         losses = []
-        for i in range(n):
-            b = pool[i % len(pool)]
-            if kind == "half_batch":
-                b = {k: v[:half] for k, v in b.items()}
-            _, m = step(ts, feed(b))
-            losses.append(m["loss"])
-            if i == 0:
-                grad = drv._host(ts.opt_state["trace"])
+        with (faults.planted(kind) if kind in faults.TRAINING
+              else contextlib.nullcontext()):
+            for i in range(n):
+                _, m = step(ts, feed(pool[i % len(pool)]))
+                losses.append(m["loss"])
+                if i == 0:
+                    grad = drv._host(ts.opt_state["trace"])
         after = drv._host(ts.params)
         losses = [float(v) for v in losses]
         del ts, step, feed
@@ -120,6 +120,15 @@ def train_readings(cell, kind: str) -> dict:
         precise()
     _free(cell)
     return drv.follow(cell, cfg, init, pool, n, losses, grad, after)
+
+
+def dp_readings(cell, seeds: list, kinds: list) -> tuple[list, list]:
+    """A data-parallel train cell's readings of each seed and kind, in one
+    session of its ranks -> (the jobs, their readings)."""
+    from bench_port.drivers import train_dp
+    jobs = [(seed, kind) for seed in seeds for kind in kinds]
+    outs = train_dp.session(cell, jobs, timed=False)
+    return jobs, [o["gaps"] for o in outs]
 
 
 def main(argv=None) -> None:
@@ -135,18 +144,30 @@ def main(argv=None) -> None:
         sys.exit("the controls are read on the card")
     manifest = harness.load_json(harness.ROOT, "BENCHMARK.json")
     out = open(args.out, "a") if args.out else None
+
+    def emit(seed, kind, readings):
+        line = {"workload": args.workload, "seed": seed, "kind": kind,
+                **readings}
+        print(json.dumps(line), flush=True)
+        if out:
+            out.write(json.dumps(line) + "\n")
+            out.flush()
+
+    def cell_of(seed):
+        return harness.Cell(manifest, args.workload, seed, 1.0, False,
+                            torch.device("cuda", 0), T0)
+
+    if cell_of(0).traffic["driver"] == "train_dp":
+        for (seed, kind), readings in zip(*dp_readings(
+                cell_of(0), args.seeds, args.kinds)):
+            emit(seed, kind, readings)
+        return
     for seed in args.seeds:
         for kind in args.kinds:
-            cell = harness.Cell(manifest, args.workload, seed, 1.0, False,
-                                torch.device("cuda", 0), T0)
+            cell = cell_of(seed)
             fn = (train_readings if cell.traffic["driver"] == "train_step"
                   else serve_readings)
-            line = {"workload": args.workload, "seed": seed, "kind": kind,
-                    **fn(cell, kind)}
-            print(json.dumps(line), flush=True)
-            if out:
-                out.write(json.dumps(line) + "\n")
-                out.flush()
+            emit(seed, kind, fn(cell, kind))
             _free(cell)
 
 

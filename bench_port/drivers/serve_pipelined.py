@@ -34,8 +34,7 @@ import torch
 from bench_port import generator, judge, peaks
 from bench_port.harness import per_layer_metrics
 from bench_port.reference import detect
-from bench_port.reference.model import Model, Quant, flatten_levels, precise
-from bench_port.reference.shapes import param_shapes
+from bench_port.reference.model import Quant, flatten_levels, precise
 from bench_port.weights import seeded_state
 
 CALIBRATION_INDEX = 1 << 20  # the calibration batch's index in the seed
@@ -50,8 +49,8 @@ def build(cell, cfg_dict: dict):
 
     t = cell.traffic
     cfg = Config.from_dict(cfg_dict)
-    state = seeded_state(param_shapes(cfg_dict), cell.seed, cell.device,
-                         t["class_bias"])
+    state = seeded_state(cell.reference.param_shapes(cfg_dict), cell.seed,
+                         cell.device, t["class_bias"])
     pred = Predictor(cfg, state, device=cell.device)
     calib = None
     if cfg.model.compute_dtype == "int8":
@@ -127,7 +126,8 @@ def reference(cell, cfg_dict: dict, state: dict, calib, bits):
     calibration batch; -> ``outputs(images)`` -> (raw levels, per-anchor
     logits, decoded boxes, final detections)."""
     dev = cell.device
-    model = Model(cfg_dict, state, Quant(bits) if bits else None)
+    model = cell.reference.Model(cfg_dict, state,
+                                 Quant(bits) if bits else None)
     if bits:
         model.calibrate(torch.from_numpy(calib).to(dev))
     anchors = reference_anchors(cell, cfg_dict)

@@ -29,7 +29,6 @@ import torch
 from bench_port import generator, judge, peaks
 from bench_port.harness import per_layer_metrics
 from bench_port.reference.model import precise
-from bench_port.reference.shapes import param_shapes
 from bench_port.reference.train import Trainer
 from bench_port.weights import seeded_state
 
@@ -48,23 +47,41 @@ def _host(tensors: dict) -> dict:
 
 
 def build(cell, cfg_dict: dict):
+    t = cell.traffic
+    state = seeded_state(cell.reference.param_shapes(cfg_dict), cell.seed,
+                         cell.device, t["class_bias"], t.get("predict_std"))
+    init = _host(state)
+    ts, step, feed = program(cfg_dict, state, cell.device)
+    return ts, step, feed, init
+
+
+def program(cfg_dict: dict, state: dict, device, mesh=None):
+    """The port's detector from ``state``, its optimizer and train state as
+    ``train.train`` makes them, the step (data-parallel over ``mesh``) and
+    the feed -> (train state, step, feed). Empties ``state`` once the
+    detector holds its copy, so that the seeded weights are freed before
+    the train state is made."""
     from ssd_tpu_torch.config import Config
     from ssd_tpu_torch.models.detector import Detector
     from ssd_tpu_torch.train import DeviceFeed
     from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
                                           make_train_step)
 
-    t = cell.traffic
     cfg = Config.from_dict(cfg_dict)
-    state = seeded_state(param_shapes(cfg_dict), cell.seed, cell.device,
-                         t["class_bias"], t.get("predict_std"))
-    init = _host(state)
-    det = Detector(cfg, state, device=cell.device)
-    del state
+    det = Detector(cfg, state, device=device)
+    state.clear()
     opt = Optimizer(cfg)
     ts = create_train_state(det, opt, ema_decay=cfg.train.ema_decay)
-    step = make_train_step(det, opt, ema_decay=cfg.train.ema_decay)
-    return ts, step, DeviceFeed(cell.device), init
+    step = make_train_step(det, opt, ema_decay=cfg.train.ema_decay,
+                           mesh=mesh)
+    return ts, step, DeviceFeed(device)
+
+
+def free(device) -> None:
+    """Returns what the dropped program held to the device."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def run(cell) -> dict:
@@ -101,9 +118,7 @@ def run(cell) -> dict:
                                  int(b["num_boxes"].sum()))
                 for b in pool]
     del ts, step, feed
-    gc.collect()
-    if cell.device.type == "cuda":
-        torch.cuda.empty_cache()
+    free(cell.device)
     precise()
     gaps = follow(cell, cfg, init, pool, followed, losses, first_grad, after)
     metrics = {}
@@ -129,12 +144,15 @@ def anchor_count(cfg: dict) -> int:
                for lvl in range(a["min_level"], a["max_level"] + 1))
 
 
-def reference_steps(cell, cfg, init, pool, followed, quant=None):
+def reference_steps(cell, cfg, init, pool, followed, quant=None,
+                    group=None):
     """The reference's first ``followed`` steps from ``init`` on the pool's
     batches -> (losses, the first gradient as the optimizer takes it, each
-    leaf's change), on the cell's device."""
+    leaf's change), on the cell's device; with ``group``, data-parallel
+    over its ranks, each on its own batches (``Trainer``)."""
     dev = cell.device
-    ref = Trainer(cfg, {k: v.to(dev) for k, v in init.items()}, quant)
+    ref = Trainer(cfg, {k: v.to(dev) for k, v in init.items()}, quant,
+                  cell.reference, group=group)
     losses = []
     for i in range(followed):
         b = {k: torch.from_numpy(v).to(dev)

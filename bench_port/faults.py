@@ -1,6 +1,6 @@
-"""Faults planted in the program's serving path, each a way the timed path
-can break: the CPU tests see each come out not correct, and
-``controls.py`` reads them at a cell's own size on the card.
+"""Faults planted in the program's serving path and training step, each a
+way the timed path can break: the CPU tests see each come out not
+correct, and ``controls.py`` reads them at a cell's own size on the card.
 
     with planted("weaker_kept"):
         ...  # the program runs with the fault underneath
@@ -15,6 +15,17 @@ can break: the CPU tests see each come out not correct, and
   best ``max_boxes``: as many detections, none of the top ones;
 * ``selection_drops_best``: the cell selection with its best tenth of
   candidates dropped.
+
+Training (``TRAINING``; a data-parallel cell plants them in every rank):
+
+* ``unchanged_state``: the optimizer's update leaves the parameters and
+  its state as they were (only its count moves);
+* ``half_batch``: the feed uploads the first half of each batch's rows, so
+  the step's mean is over them;
+* ``unreduced_grads``: the exchange between the ranks left out of the
+  gradients (the metrics are still summed): each rank updates on its own
+  rows' share;
+* ``same_rows``: every rank takes the rows of data index 0.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch
 
 SERVING = ("half_rows", "answers", "no_nms", "nms_at_0.3", "weaker_kept",
            "merge_skips_top", "selection_drops_best")
+TRAINING = ("unchanged_state", "half_batch", "unreduced_grads", "same_rows")
 
 
 def _collect_altered(real, alter):
@@ -99,12 +111,44 @@ def _selection_drops_the_best(real):
     return select
 
 
+def _update_unchanged(real):
+    def update(self, grads, opt_state, params):
+        opt_state["count"] += 1
+    return update
+
+
+def _feed_half(real):
+    def feed(self, batch):
+        half = len(batch["images"]) // 2
+        return real(self, {k: v[:half] for k, v in batch.items()})
+    return feed
+
+
+def _reduce_metrics_only(real):
+    def reduce(grads, metrics, group):
+        real({}, metrics, group)
+    return reduce
+
+
+def _first_rows(real):
+    def index_and_size(mesh=None):
+        return 0, real(mesh)[1]
+    return index_and_size
+
+
 def _site(name: str):
     """-> (object, attribute, wrapper of the real one)."""
+    from ssd_tpu_torch import train, train_step
     from ssd_tpu_torch.models import detector
     from ssd_tpu_torch.ops import nms, nms_cuda
+    from ssd_tpu_torch.parallel import mesh
     from ssd_tpu_torch.predictor import Predictor
     return {
+        "unchanged_state": (train_step.Optimizer, "update",
+                            _update_unchanged),
+        "half_batch": (train.DeviceFeed, "__call__", _feed_half),
+        "unreduced_grads": (train_step, "_reduce", _reduce_metrics_only),
+        "same_rows": (mesh, "data_index_and_size", _first_rows),
         "half_rows": (Predictor, "predict_collect",
                       lambda r: _collect_altered(r, _half_rows_left_out)),
         "answers": (Predictor, "predict_collect",

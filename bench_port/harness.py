@@ -3,7 +3,9 @@ prints the result line.
 
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) joins a
 configuration, ``bench_port/configs/<config>.json``, to a traffic mix,
-``bench_port/traffic/<traffic>.json``; the mix names its driver,
+``bench_port/traffic/<traffic>.json``; the configuration names its plain
+reference, ``bench_port/reference/<reference>.py`` (``model`` where it
+names none: ``reference.for_config``); the mix names its driver,
 ``bench_port/drivers/<driver>.py``; the limits of the comparison that
 decides ``correct`` are ``bench_port/limits/<workload>.json``; each
 per-layer metric is read by ``bench_port/metrics/<metric>.py``. Adding a
@@ -13,7 +15,8 @@ A driver's ``run(cell)`` builds the system under test from the seed,
 calls ``cell.setup_done()`` when every shape it will use is warm, runs
 its measured window inside ``cell.window()``, then compares what the
 window produced with the reference and returns ``{"attempted",
-"failed", "checks", "metrics"}``; ``checks`` maps a short name to
+"failed", "checks", "metrics", "memory_peak_bytes"}`` and, where it
+ran on more than one device, ``devices``; ``checks`` maps a short name to
 ``(value, limit)``.
 """
 
@@ -25,6 +28,8 @@ import json
 import os
 import sys
 import time
+
+from bench_port.reference import for_config
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -70,6 +75,7 @@ class Cell:
         configs = {c["name"]: c for c in manifest["configs"]}
         conf = configs[self.entry["config"]]
         self.config = load_json(ROOT, conf["file"])
+        self.reference = for_config(self.config)  # fails here, named
         self.traffic = load_json(HERE, "traffic",
                                  self.entry["traffic"] + ".json")
         limits = os.path.join(HERE, "limits", workload + ".json")

@@ -27,6 +27,14 @@ def category_ms_per_unit(s: dict, *categories: str):
     return sum(cat.get(c, 0.0) for c in categories) / s["units"] * 1e3
 
 
+def exposed_collective_ms_per_unit(s: dict):
+    """Collective device time that no other operation overlaps, a unit,
+    in ms; ``None`` where the window ran no collective."""
+    if not s.get("units") or "collective" not in s.get("category_s", {}):
+        return None
+    return s["collective_exposed_s"] / s["units"] * 1e3
+
+
 def roofline_pct(s: dict, category: str, bound_key: str):
     """A kernel's bound for the units over its device time, in percent."""
     t = s.get("category_s", {}).get(category)

@@ -20,6 +20,9 @@ Departures from the port, each deliberate:
 
 Parameters are a dict of tensors under the port's state-dict names, so the
 one seeded state dict feeds both.
+
+This is the default reference of a configuration (``reference/__init__.py``):
+it exports ``Model``, ``param_shapes`` and ``wgrad_excess``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from bench_port.reference.collective import all_reduce_sum
 
 MEAN_RGB = (0.485 * 255.0, 0.456 * 255.0, 0.406 * 255.0)
 STD_RGB = (0.229 * 255.0, 0.224 * 255.0, 0.225 * 255.0)
@@ -105,13 +110,17 @@ class Quant:
 class Model:
     """The reference network over a params dict. ``cfg``: the repo
     config as a dict. ``quant``: a ``Quant`` for the dense convs, or
-    ``None`` for float32."""
+    ``None`` for float32. ``group``: in training, the process group over
+    whose ranks (each its own rows, as many each) batch norm takes its
+    two means, so that they are the global batch's; ``None``: this
+    process's rows alone."""
 
     def __init__(self, cfg: dict, params: dict, quant: Quant | None = None):
         self.cfg = cfg
         self.p = params
         self.quant = quant
         self.training = False
+        self.group = None
         self.backbone = cfg["model"]["backbone"]
         if self.backbone not in ("mobilenet", "resnet50"):
             raise ValueError(f"no reference for {self.backbone}")
@@ -146,8 +155,13 @@ class Model:
         w, b = self.p[name + ".weight"], self.p[name + ".bias"]
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min(x.square().mean(dim=(0, 2, 3))
-                                  - mean.square(), 0.0)
+            mean_sq = x.square().mean(dim=(0, 2, 3))
+            if self.group is not None:
+                both = all_reduce_sum(torch.stack([mean, mean_sq]),
+                                      self.group)
+                mean, mean_sq = (both / torch.distributed.get_world_size(
+                    self.group)).unbind(0)
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
         else:
             mean = self.p[name + ".running_mean"]
             var = self.p[name + ".running_var"]
@@ -245,10 +259,16 @@ class Model:
         return (self.subnet("class_net", p).permute(0, 2, 3, 1),
                 self.subnet("box_net", p).permute(0, 2, 3, 1))
 
+    def features(self, images: torch.Tensor, run=None) -> dict:
+        """The backbone's taps ``c3``-``c5``. ``run(fn, *args)``: how each
+        ResNet block is called (an activation checkpoint in training's
+        reference); MobileNet-v1's layers are called directly."""
+        if self.backbone == "mobilenet":
+            return self.mobilenet(images)
+        return self.resnet(images, run)
+
     def pyramid(self, images: torch.Tensor) -> list:
-        feats = (self.mobilenet(images) if self.backbone == "mobilenet"
-                 else self.resnet(images))
-        return self.fpn(feats)
+        return self.fpn(self.features(images))
 
     def __call__(self, images: torch.Tensor) -> list:
         """uint8 NHWC images -> the per-level raw maps."""
@@ -271,3 +291,84 @@ def flatten_levels(raw: list, num_classes: int):
     n = raw[0][0].shape[0]
     return (torch.cat([c.reshape(n, -1, num_classes) for c, _ in raw], 1),
             torch.cat([b.reshape(n, -1, 4) for _, b in raw], 1))
+
+
+def _conv_bn(out: dict, name: str, cin: int, cout: int, k: int,
+             groups: int = 1) -> None:
+    out[name + ".conv.weight"] = (cout, cin // groups, k, k)
+    for p in ("weight", "bias", "running_mean", "running_var"):
+        out[f"{name}.bn.{p}"] = (cout,)
+
+
+def param_shapes(cfg: dict) -> dict:
+    """The reference's parameters by state-dict name and shape, from a
+    config alone: the published layer tables, under the port's names."""
+    m = cfg["model"]
+    if m.get("width_multiplier", 1.0) != 1.0:
+        raise ValueError("the reference holds the published widths")
+    out: dict = {}
+    if m["backbone"] == "mobilenet":
+        _conv_bn(out, "backbone.stem", 3, MOBILENET_STEM, 3)
+        cin = MOBILENET_STEM
+        for name, ch, _ in MOBILENET_TABLE:
+            _conv_bn(out, f"backbone.{name}.depthwise", cin, cin, 3, cin)
+            _conv_bn(out, f"backbone.{name}.pointwise", cin, ch, 1)
+            cin = ch
+        taps = (256, 512, 1024)
+    else:
+        _conv_bn(out, "backbone.stem", 3, 64, 7)
+        cin = 64
+        for prefix, width, blocks, stride in RESNET_STAGES:
+            for i in range(blocks):
+                name = f"backbone.{prefix}_b{i}"
+                if cin != 4 * width or (stride != 1 and i == 0):
+                    _conv_bn(out, name + ".proj", cin, 4 * width, 1)
+                _conv_bn(out, name + ".conv1", cin, width, 1)
+                _conv_bn(out, name + ".conv2", width, width, 3)
+                _conv_bn(out, name + ".conv3", width, 4 * width, 1)
+                cin = 4 * width
+        taps = (512, 1024, 2048)
+    f = m["fpn_channels"]
+    for lvl, c in zip((3, 4, 5), taps):
+        out[f"fpn.lateral{lvl}.conv.weight"] = (f, c, 1, 1)
+        out[f"fpn.lateral{lvl}.conv.bias"] = (f,)
+    for lvl in (3, 4, 5):
+        out[f"fpn.smooth{lvl}.conv.weight"] = (f, f, 3, 3)
+        out[f"fpn.smooth{lvl}.conv.bias"] = (f,)
+    out["fpn.p6.conv.weight"] = (f, taps[2], 3, 3)
+    out["fpn.p6.conv.bias"] = (f,)
+    out["fpn.p7.conv.weight"] = (f, f, 3, 3)
+    out["fpn.p7.conv.bias"] = (f,)
+    a = cfg["anchors"]
+    k = a["scales_per_octave"] * len(a["aspect_ratios"])
+    h = m.get("head_channels") or f
+    fk = m.get("head_final_kernel", 3)
+    for net, outs in (("class_net", k * cfg["num_classes"]),
+                      ("box_net", k * 4)):
+        cin = f
+        for i in range(m["head_depth"]):
+            out[f"head.{net}.conv{i}.weight"] = (h, cin, 3, 3)
+            out[f"head.{net}.conv{i}.bias"] = (h,)
+            cin = h
+        out[f"head.{net}.predict.weight"] = (outs, cin, fk, fk)
+        out[f"head.{net}.predict.bias"] = (outs,)
+    return out
+
+
+def wgrad_excess(params: dict, cfg: dict, batch: int) -> int:
+    """What ``FlopCounterMode`` over-counts in the depthwise weight
+    gradients of a MobileNet-v1 step (its formula ignores ``groups``):
+    ``(groups - 1) / groups`` of its count; 0 for ResNet-50, which has no
+    grouped conv."""
+    if cfg["model"]["backbone"] != "mobilenet":
+        return 0
+    size = cfg["image_size"] // 2  # the stem's stride
+    excess = 0
+    for name, _, stride in MOBILENET_TABLE:
+        w = params[f"backbone.{name}.depthwise.conv.weight"]
+        c = w.shape[0]
+        out = -(-size // stride)
+        # counted 2 N Ho Wo C (C 9), right 2 N Ho Wo C 9
+        excess += 2 * batch * out * out * c * 9 * (c - 1)
+        size = out
+    return excess

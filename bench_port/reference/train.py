@@ -13,16 +13,25 @@ schedule, whose first update has learning rate 0.
 The backbone's blocks and each pyramid level's subnets and loss run under
 activation checkpoints, which recompute the same float32 arithmetic: at
 b64/640 the plain step would not fit the card otherwise.
+
+Data-parallel (``group``): each rank follows the step on its own rows of
+the global batch, with batch norm's two means and the positive count
+summed over the ranks (``collective.all_reduce_sum``), so that they are
+the global batch's; each rank's loss is then its rows' share, and the
+gradients and the loss are summed over the ranks before the L2 term, the
+clip and the update, which every rank applies alike: the one-process step
+at the global batch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from bench_port.reference import detect
-from bench_port.reference.model import Model
+from bench_port.reference import model as default_reference
 
 NEGATIVE, IGNORE = -1, -2
 
@@ -126,17 +135,25 @@ def lr_at(count: int, t: dict) -> float:
 class Trainer:
     """Follows the port's step from the same parameters on the same
     batches. ``params``: float32 tensors by state-dict name (BN running
-    statistics are not needed: train mode normalizes by the batch's)."""
+    statistics are not needed: train mode normalizes by the batch's).
+    ``reference``: the configuration's reference module
+    (``reference.for_config``), by default ``model``. ``group``: the
+    process group of a data-parallel step, each rank its own rows, or
+    ``None``."""
 
-    def __init__(self, cfg: dict, params: dict, quant=None):
+    def __init__(self, cfg: dict, params: dict, quant=None, reference=None,
+                 group=None):
         if cfg["train"]["optimizer"] != "momentum":
             raise ValueError("the reference follows momentum SGD")
         self.cfg = cfg
+        self.group = group
         self.params = {k: v.detach().clone().requires_grad_(True)
                        for k, v in params.items()
                        if not k.endswith(("running_mean", "running_var"))}
-        self.model = Model(cfg, self.params, quant)
+        self.model = (reference or default_reference).Model(
+            cfg, self.params, quant)
         self.model.training = True
+        self.model.group = group
         self.trace = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.count = 0
         self.anchors = None
@@ -147,8 +164,12 @@ class Trainer:
             self.anchors = torch.from_numpy(detect.anchors(
                 cfg["image_size"], cfg["anchors"])).to(batch["images"].device)
         tg = targets(self.anchors, batch, cfg["matcher"])
-        num_pos = torch.clamp_min(tg["reg_w"].sum(), 1.0)
-        feats = self._backbone(batch["images"])
+        num_pos = tg["reg_w"].sum()
+        if self.group is not None:
+            dist.all_reduce(num_pos, group=self.group)
+        num_pos = torch.clamp_min(num_pos, 1.0)
+        feats = m.features(batch["images"], run=lambda fn, *a: checkpoint(
+            fn, *a, use_reentrant=False))
         pyramid = checkpoint(m.fpn, feats, use_reentrant=False)
         lc = cfg["losses"]
         cls_sum = loc_sum = 0.0
@@ -166,13 +187,6 @@ class Trainer:
             off += a
         return (lc["classification_weight"] * cls_sum / num_pos
                 + lc["localization_weight"] * loc_sum / num_pos)
-
-    def _backbone(self, images: torch.Tensor) -> dict:
-        m = self.model
-        if m.backbone == "mobilenet":
-            return m.mobilenet(images)
-        return m.resnet(images, run=lambda fn, *a: checkpoint(
-            fn, *a, use_reentrant=False))
 
     def _level_loss(self, p, labels, cls_w, reg, reg_w, anc):
         cfg = self.cfg
@@ -199,11 +213,21 @@ class Trainer:
         wd = self.cfg["losses"]["weight_decay"]
         t = self.cfg["train"]
         with torch.no_grad():
+            raw = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                   for k, v in self.params.items()}
+            loss = loss.detach()
+            if self.group is not None:  # the ranks' shares, summed
+                flat = torch.cat([g.reshape(-1) for g in raw.values()]
+                                 + [loss.reshape(1)])
+                dist.all_reduce(flat, group=self.group)
+                off = 0
+                for k, g in raw.items():
+                    raw[k] = flat[off:off + g.numel()].view_as(g)
+                    off += g.numel()
+                loss = flat[off]
             kernels = [v for v in self.params.values() if v.dim() >= 2]
             l2 = 0.5 * wd * sum(v.square().sum() for v in kernels)
-            grads = {k: (v.grad if v.grad is not None
-                         else torch.zeros_like(v))
-                     + (v * wd if v.dim() >= 2 else 0.0)
+            grads = {k: raw[k] + (v * wd if v.dim() >= 2 else 0.0)
                      for k, v in self.params.items()}
             norm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
             clip = t["gradient_clip_norm"]
@@ -216,4 +240,4 @@ class Trainer:
                 tr.copy_(g + tr * mu)
                 self.params[k].add_((g + tr * mu) * -lr)
             self.count += 1
-        return {"loss": float(loss.detach() + l2), "grad": grads}
+        return {"loss": float(loss + l2), "grad": grads}

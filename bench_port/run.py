@@ -54,7 +54,7 @@ def result_line(cell, out: dict) -> dict:
     device = {"platform": "gpu" if dev.type == "cuda" else dev.type,
               "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
-              "count": 1,
+              "count": out.get("devices", 1),
               "memory_peak_bytes": out["memory_peak_bytes"]}
     if cell.trace:
         device["busy_s"] = cell.summary["busy_s"] if cell.summary else 0.0

@@ -1,6 +1,7 @@
 """Shared by the benchmark's CPU tests: cells cut to a size a test run
-holds (128 px, batches of 4, two pool batches), run through the harness
-on the CPU as the chip would run them, past its look for a card."""
+holds (128 px, batches of 4, two pool batches; a data-parallel cell two
+gloo ranks of 2 rows each), run through the harness on the CPU as the
+chip would run them, past its look for a card."""
 
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ def tiny(workload: str) -> dict:
         cfg["model"] = {"compute_dtype": "float32"}
     out = {"config": cfg,
            "traffic": {"batch": 4, "pool_batches": 2}}
+    if "_dp" in workload:  # the same global batch of 4, over two ranks
+        out["traffic"].update(ranks=2, rows=2)
     # this size's own limits (the cells' hold their full-size runs): at
     # 128 px training's deepest batch norms see 4-16 values, and the
     # port's bf16 rounding of the normalized image alone moves sound runs'
@@ -55,11 +58,16 @@ def manifest() -> dict:
 
 
 def run_tiny(workload: str, trace: int = 0, seconds: float = 1.0,
-             seed: int = SEED) -> dict:
+             seed: int = SEED, traffic: dict | None = None,
+             bench: dict | None = None) -> dict:
+    """``traffic``: more keys over the tiny mix (a ``fault``); ``bench``:
+    a manifest in place of ``BENCHMARK.json``."""
     from bench_port import run
     args = argparse.Namespace(workload=workload, seed=seed,
                               seconds=seconds, trace=trace)
-    return run.run(args, torch.device("cpu"), tiny(workload), manifest())
+    over = tiny(workload)
+    over["traffic"].update(traffic or {})
+    return run.run(args, torch.device("cpu"), over, bench or manifest())
 
 
 @pytest.fixture(autouse=True)

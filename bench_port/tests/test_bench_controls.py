@@ -17,7 +17,8 @@ from conftest import ROOT, SEED, manifest, tiny
 from bench_port import controls, harness
 
 CELLS = ["ssd_mnv1_fpn_640.serve_int8_b32", "ssd_mnv1_fpn_640.serve_bf16_b32",
-         "retinanet_r50_fpn_640.train_b64"]
+         "retinanet_r50_fpn_640.train_b64",
+         "retinanet_r50_fpn_640.train_dp4_b256"]
 MANIFEST = manifest()
 
 
@@ -29,6 +30,12 @@ def fails(cell, readings: dict) -> bool:
 def read(workload: str, device, seed: int, overrides=None) -> tuple:
     cell = harness.Cell(MANIFEST, workload, seed, 1.0, False, device, 0.0,
                         overrides)
+    if cell.traffic["driver"] == "train_dp":
+        if device.type == "cuda" and \
+                torch.cuda.device_count() < cell.traffic["ranks"]:
+            pytest.skip(f"the cell's own size runs on "
+                        f"{cell.traffic['ranks']} cards")
+        return cell, controls.dp_readings(cell, [seed], ["control"])[1][0]
     fn = (controls.train_readings if "train" in workload
           else controls.serve_readings)
     return cell, fn(cell, "control")
@@ -54,7 +61,7 @@ def test_control_is_not_correct_at_the_cells_size(workload):
 def test_limits_name_only_numbers_the_judge_reads():
     from bench_port import judge
     serve = set(judge.GAPS)
-    train = {"loss_gap", "grad_gap", "update_gap"}
+    train = {"loss_gap", "grad_gap", "update_gap", "replica_mismatch"}
     for w in MANIFEST["workloads"]:
         with open(os.path.join(ROOT, "bench_port", "limits",
                                w["name"] + ".json")) as f:

@@ -86,7 +86,15 @@ def test_every_cell_finds_its_files(cell):
     assert os.path.exists(os.path.join(HERE, "drivers", driver + ".py"))
     assert os.path.exists(os.path.join(HERE, "limits",
                                        cell["name"] + ".json"))
-    assert cell["chips"] == 1
+    assert cell["chips"] in (1, 4)
+    with open(os.path.join(HERE, "traffic", cell["traffic"] + ".json")) as f:
+        ranks = json.load(f).get("ranks", 1)
+    assert ranks == cell["chips"]  # a rank a card, as many as it asks for
+
+
+def test_four_card_cells_are_at_most_a_quarter_or_one():
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
 
 
 def test_every_per_layer_metric_has_a_reader():

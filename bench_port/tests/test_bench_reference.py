@@ -17,8 +17,7 @@ import torch
 from conftest import ROOT
 
 from bench_port.reference import detect
-from bench_port.reference.model import Model
-from bench_port.reference.shapes import param_shapes
+from bench_port.reference.model import Model, param_shapes
 from bench_port.reference.train import Trainer
 from bench_port.weights import seeded_state
 
@@ -164,4 +163,91 @@ def test_training_steps_match_the_ports():
                             ref_change)
     assert gaps["loss_gap"] < 1e-5, gaps
     assert gaps["grad_gap"] < 1e-5, gaps
+    assert gaps["update_gap"] < 1e-3, gaps
+
+
+DP_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from bench_port import generator
+from bench_port.reference.model import param_shapes
+from bench_port.reference.train import Trainer
+from bench_port.weights import seeded_state
+
+a = json.loads(sys.argv[1])
+torch.set_num_threads(2)
+dist.init_process_group("gloo", init_method=a["init"], world_size=2,
+                        rank=a["rank"])
+d = a["cfg"]
+state = seeded_state(param_shapes(d), 5, torch.device("cpu"), -4.59512, 0.01)
+ref = Trainer(d, state, group=dist.group.WORLD)
+rows = slice(2 * a["rank"], 2 * a["rank"] + 2)
+losses = []
+for i in range(3):
+    b = generator.scene_batch(9, i, 4, (128, 128), 80, {"sides": [8, 64]},
+                              torch.device("cpu"))
+    losses.append(ref.step({k: torch.from_numpy(v[rows])
+                            for k, v in b.items()})["loss"])
+    if i == 0:
+        grad = {k: v.clone() for k, v in ref.trace.items()}
+if a["rank"] == 0:
+    np.savez(a["out"], losses=np.array(losses),
+             **{"g." + k: v.numpy() for k, v in grad.items()},
+             **{"p." + k: v.detach().numpy() for k, v in ref.params.items()})
+dist.destroy_process_group()
+"""
+
+
+def test_the_data_parallel_reference_is_the_global_batch_step(tmp_path):
+    """The reference's data-parallel step, two gloo ranks of 2 rows each,
+    is its one-process step on the 4 rows (global batch norm, positive
+    count, summed gradients), in float32 up to the order of the sums. The
+    learning rate is a tenth of the port's test's: at 128 px a step of
+    that one moves the third loss by half, and the two orders' rounding
+    with it."""
+    import socket
+    import subprocess
+    import sys
+
+    from bench_port import generator, judge
+    d = config(RESNET)
+    d["train"]["warmup_steps"] = 2
+    d["train"]["learning_rate"] = 0.0004
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        init = f"tcp://localhost:{s.getsockname()[1]}"
+    out = tmp_path / "rank0.npz"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_RANK, json.dumps(
+            {"init": init, "rank": r, "cfg": d, "out": str(out)})], cwd=ROOT)
+        for r in (0, 1)]
+    state = seeded_state(param_shapes(d), 5, torch.device("cpu"), -4.59512,
+                         0.01)
+    init_params = {k: v.clone() for k, v in state.items()}
+    ref = Trainer(d, state)
+    losses = []
+    for i in range(3):
+        b = generator.scene_batch(9, i, 4, (128, 128), 80, {"sides": [8, 64]},
+                                  torch.device("cpu"))
+        losses.append(ref.step({k: torch.from_numpy(v)
+                                for k, v in b.items()})["loss"])
+        if i == 0:
+            grad = {k: v.clone() for k, v in ref.trace.items()}
+    for p in procs:
+        assert p.wait(timeout=600) == 0
+    dp = np.load(out)
+    dp_grad = {k: torch.from_numpy(dp["g." + k]) for k in grad}
+    change = {k: ref.params[k].detach() - init_params[k] for k in grad}
+    dp_change = {k: torch.from_numpy(dp["p." + k]) - init_params[k]
+                 for k in grad}
+    gaps = judge.train_gaps(list(dp["losses"]), losses, dp_grad, grad,
+                            dp_change, change)
+    # the median leaf: at 128 px the deepest norms see 2 x 2 x 4 values,
+    # gradients before the clip reach 1e4 and the two orders of the means'
+    # sums part a few leaves by up to 0.5% (the means of the ranks' rows
+    # left unsummed part the losses by a tenth)
+    assert gaps["loss_gap"] < 1e-5, gaps
+    assert gaps["grad_gap"] < 1e-3, gaps
     assert gaps["update_gap"] < 1e-3, gaps

@@ -5,9 +5,11 @@ The window runs under ``torch.profiler`` (host and device activity); its
 events are read in memory (``kineto_results``), not written out:
 
 * device operations: kernels, copies and fills, by name and category
-  (the categories of ``ssd_tpu_torch/utils/trace_tools.py``, copied);
+  (the categories of ``ssd_tpu_torch/utils/trace_tools.py``, copied, and
+  ``collective`` for NCCL's kernels);
 * the device's busy time: the union of those operations' intervals (a
-  plain sum counts overlapping kernels twice);
+  plain sum counts overlapping kernels twice); and the collectives'
+  exposed time, the part of theirs that no other operation overlaps;
 * host spans: the program's ``record_function`` ranges and the
   harness's own, by name, with their durations;
 * idle gaps: the stretches inside the window where no device operation
@@ -21,6 +23,7 @@ import collections
 DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 # (category, substrings of the op name), first match wins: trace_tools'
 CATEGORIES = (
+    ("collective", ("nccl",)),
     ("K1 nms", ("nms_kernel",)),
     ("K2 match", ("match_kernel", "unpack_kernel")),
     ("K3 fused_early", ("fused_early_kernel",)),
@@ -93,6 +96,8 @@ def summarize(events, start_ns: int, end_ns: int) -> dict:
         elif kind == "user_annotation":
             spans.append((e.name(), s, t))
     busy_ns, gaps = _union([(s, t) for _, s, t in ops])
+    others_ns, _ = _union([(s, t) for n, s, t in ops
+                           if category(n) != "collective"])
     if ops:  # idle before the first and after the last operation too
         first = min(s for _, s, _ in ops)
         last = max(t for _, _, t in ops)
@@ -123,6 +128,7 @@ def summarize(events, start_ns: int, end_ns: int) -> dict:
     return {
         "window_s": (end_ns - start_ns) * 1e-9,
         "busy_s": busy_ns * 1e-9,
+        "collective_exposed_s": (busy_ns - others_ns) * 1e-9,
         "ops": {n: {"s": v, "calls": calls[n], "category": category(n)}
                 for n, v in by_op.items()},
         "category_s": dict(by_cat),
