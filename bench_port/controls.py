@@ -9,23 +9,32 @@ program's place:
 
 * a bf16 serve cell: the program's own int8 path (int8 with
   ``int8_neck``, calibrated on a seeded batch), against the float32
-  reference;
+  reference (kind ``control``); or, needing no int8 path of the program,
+  the reference's 8-bit emulation calibrated on the cell's calibration
+  batch (kind ``reference_int8``);
 * an int8 serve cell: the reference's 4-bit emulation, against its 8-bit
-  one (its selection, NMS and merge are the reference's own, on its own
-  raw maps);
-* the bf16 train cells: the reference with its convs fake-quantized to
-  8 bits (per tensor, each call's own range, the rounding passed straight
-  through), against the float32 reference; and the fault of half the
-  batch left out (the program's step on the first half of each batch's
-  rows, its mean over them), planted in the program.
+  one;
 
-``--kinds`` may also name the faults of ``faults.py`` (a serve cell's
-``SERVING``, a data-parallel train cell's ``TRAINING``), each planted in
-the program at the cell's own size. A data-parallel cell reads every seed
-and kind in one session of its ranks.
+  where the reference's emulation stands in the program's place, its
+  selection, NMS and merge are the reference's own, on its own raw maps;
+* the bf16 train cells: the reference with its dense convs
+  fake-quantized to 8 bits (per tensor, each call's own range, the
+  rounding passed straight through), against the float32 reference
+  (kind ``control``); or its whole step in 8 bits (kind ``int8_step``):
+  every conv, the depthwise ones too, and the backward's incoming
+  gradient, each on its own range.
+
+Which kind a cell's limits were set against, its limits file names under
+``control`` (``control`` where it names none); ``--kinds`` reads the
+program and that kind by default. It may also name the faults of
+``faults.py`` (a serve cell's ``SERVING``, a train cell's ``TRAINING``,
+and ``EMA`` where the configuration keeps an EMA) and its ``SOUND``
+variants, each planted in the program at the cell's own size. A
+data-parallel cell reads every seed and kind in one session of its ranks.
 
 Each line: ``{"workload", "seed", "kind": "program" | "control" |
-"half_batch" | a fault, readings...}``. The benchmark's own runs do not run this.
+"reference_int8" | "int8_step" | a fault, readings...}``. The benchmark's
+own runs do not run this.
 """
 
 from __future__ import annotations
@@ -60,9 +69,13 @@ def serve_readings(cell, kind: str) -> dict:
     if kind == "control" and not int8:  # the program's int8 path
         run_cfg = json.loads(json.dumps(cfg))
         run_cfg["model"].update(compute_dtype="int8", int8_neck=True)
+    # the bits of the reference's emulation in the program's place
+    ctl_bits = {"control": 4 if int8 else None, "reference_int8": 8}.get(kind)
+    if kind == "reference_int8" and int8:
+        raise ValueError("reference_int8 is a bf16 serve cell's control")
     pred, state, calib = drv.build(cell, run_cfg)
     served = stages = None
-    if kind != "control" or not int8:
+    if ctl_bits is None:
         with (faults.planted(kind) if kind in faults.SERVING
               else contextlib.nullcontext()):
             served = [pred.predict(b) for b in batches]
@@ -71,8 +84,10 @@ def serve_readings(cell, kind: str) -> dict:
     _free(cell)
     precise()
     bits = 8 if int8 else None
-    if served is None:  # the reference's 4-bit emulation in the program's place
-        ctl = drv.reference(cell, cfg, state, calib, 4)
+    if served is None:  # the reference's emulation in the program's place
+        if calib is None:
+            calib = drv.calibration_batch(cell, cfg)
+        ctl = drv.reference(cell, cfg, state, calib, ctl_bits)
         anchors = drv.reference_anchors(cell, cfg)
         served, stages = [], []
         for images in batches:
@@ -96,30 +111,33 @@ def train_readings(cell, kind: str) -> dict:
     cfg = cell.repo_config
     pool = drv.batches(cell, cfg)
     n = cell.traffic["followed"]
-    ts, step, feed, init = drv.build(cell, cfg)
-    if kind == "control":
-        del ts, step, feed
-        _free(cell)
-        precise()
-        losses, grad, change = drv.reference_steps(
-            cell, cfg, init, pool, n, Quant(8, dynamic=True, ste=True))
-        after = {k: init[k].to(cell.device) + v for k, v in change.items()}
-    else:
+    quant = {"control": {}, "int8_step": {"whole_step": True}}.get(kind)
+    with (faults.planted(kind)
+          if kind in faults.TRAINING + faults.EMA + faults.SOUND
+          else contextlib.nullcontext()):
+        ts, step, feed, init = drv.build(cell, cfg)
         losses = []
-        with (faults.planted(kind) if kind in faults.TRAINING
-              else contextlib.nullcontext()):
+        if quant is None:
             for i in range(n):
                 _, m = step(ts, feed(pool[i % len(pool)]))
                 losses.append(m["loss"])
                 if i == 0:
                     grad = drv._host(ts.opt_state["trace"])
-        after = drv._host(ts.params)
-        losses = [float(v) for v in losses]
-        del ts, step, feed
-        _free(cell)
-        precise()
+            after = drv._host(ts.params)
+            ema = (drv._host(ts.ema_params) if ts.ema_params is not None
+                   else None)
+    losses = [float(v) for v in losses]
+    del ts, step, feed
     _free(cell)
-    return drv.follow(cell, cfg, init, pool, n, losses, grad, after)
+    precise()
+    if quant is not None:
+        losses, grad, change, ema = drv.reference_steps(
+            cell, cfg, init, pool, n, Quant(8, dynamic=True, ste=True,
+                                            **quant))
+        ema = ema and ema[1]  # the control's EMA in the program's place
+        after = {k: init[k].to(cell.device) + v for k, v in change.items()}
+    _free(cell)
+    return drv.follow(cell, cfg, init, pool, n, losses, grad, after, ema)
 
 
 def dp_readings(cell, seeds: list, kinds: list) -> tuple[list, list]:
@@ -135,8 +153,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
-    p.add_argument("--kinds", nargs="+",
-                   default=["program", "control"])
+    p.add_argument("--kinds", nargs="+", default=None,
+                   help="by default the program and the cell's control")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     from bench_port.run import T0
@@ -157,13 +175,14 @@ def main(argv=None) -> None:
         return harness.Cell(manifest, args.workload, seed, 1.0, False,
                             torch.device("cuda", 0), T0)
 
+    kinds = args.kinds or ["program", cell_of(0).control]
     if cell_of(0).traffic["driver"] == "train_dp":
         for (seed, kind), readings in zip(*dp_readings(
-                cell_of(0), args.seeds, args.kinds)):
+                cell_of(0), args.seeds, kinds)):
             emit(seed, kind, readings)
         return
     for seed in args.seeds:
-        for kind in args.kinds:
+        for kind in kinds:
             cell = cell_of(seed)
             fn = (train_readings if cell.traffic["driver"] == "train_step"
                   else serve_readings)

@@ -35,7 +35,7 @@ from bench_port import generator, judge, peaks
 from bench_port.harness import per_layer_metrics
 from bench_port.reference import detect
 from bench_port.reference.model import Quant, flatten_levels, precise
-from bench_port.weights import seeded_state
+from bench_port.weights import reference_state
 
 CALIBRATION_INDEX = 1 << 20  # the calibration batch's index in the seed
 
@@ -49,19 +49,26 @@ def build(cell, cfg_dict: dict):
 
     t = cell.traffic
     cfg = Config.from_dict(cfg_dict)
-    state = seeded_state(cell.reference.param_shapes(cfg_dict), cell.seed,
-                         cell.device, t["class_bias"])
+    state = reference_state(cell.reference, cfg_dict, cell.seed,
+                            cell.device, t["class_bias"])
     pred = Predictor(cfg, state, device=cell.device)
     calib = None
     if cfg.model.compute_dtype == "int8":
-        calib = generator.scene_batch(cell.seed, CALIBRATION_INDEX,
-                                    t.get("batch", 32), cfg.image_hw(),
-                                    cfg.num_classes, t["scenes"],
-                                    cell.device)["images"]
+        calib = calibration_batch(cell, cfg_dict)
         calibrate(pred.detector, [calib])
     if "depth" in t:
         pred.staging.depth = max(pred.staging.depth, t["depth"] + 1)
     return pred, state, calib
+
+
+def calibration_batch(cell, cfg_dict: dict):
+    """The seeded batch that int8 scales are calibrated on."""
+    t = cell.traffic
+    return generator.scene_batch(cell.seed, CALIBRATION_INDEX,
+                                 t.get("batch", 32),
+                                 (cfg_dict["image_size"],) * 2,
+                                 cfg_dict["num_classes"], t["scenes"],
+                                 cell.device)["images"]
 
 
 def pool(cell, cfg_dict: dict) -> list:

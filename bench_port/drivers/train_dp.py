@@ -59,13 +59,14 @@ import time
 import torch
 import torch.distributed as dist
 
-from bench_port import faults, generator, judge, peaks
-from bench_port.drivers.train_step import (_host, anchor_count, free,
-                                           program, reference_steps)
+from bench_port import faults, generator, peaks
+from bench_port.drivers.train_step import (_host, anchor_count, free, gaps,
+                                           program, reference_steps,
+                                           seed_ema)
 from bench_port.harness import ROOT, forbidden_modules, per_layer_metrics
 from bench_port.reference import for_config
 from bench_port.reference.model import Quant, precise
-from bench_port.weights import seeded_state
+from bench_port.weights import reference_state
 
 JOIN_SECONDS = 30  # how long rank 0 waits for a rank to exit at the end
 
@@ -107,8 +108,8 @@ def batches(ctx: Rank, seed: int, index: int) -> list:
 def initial_state(ctx: Rank, seed: int) -> dict:
     """The seeded weights on this rank's device, rank 0's on every rank."""
     t = ctx.traffic
-    state = seeded_state(ctx.reference.param_shapes(ctx.cfg), seed,
-                         ctx.device, t["class_bias"], t.get("predict_std"))
+    state = reference_state(ctx.reference, ctx.cfg, seed, ctx.device,
+                            t["class_bias"], t.get("predict_std"))
     for v in state.values():
         dist.broadcast(v, 0)
     return state
@@ -194,9 +195,10 @@ def job(ctx: Rank, seed: int, kind: str, timed: bool, cell=None) -> dict:
         del state
         free(ctx.device)
         precise()
-        losses, grad, change = reference_steps(
+        losses, grad, change, ema = reference_steps(
             ctx, ctx.cfg, init, own, followed,
-            Quant(8, dynamic=True, ste=True), dist.group.WORLD)
+            Quant(8, dynamic=True, ste=True), dist.group.WORLD, seed)
+        ema = ema and ema[1]  # the control's EMA in the program's place
         replica = 0.0  # one reference state for all the ranks
         after = {k: init[k].to(ctx.device) + v for k, v in change.items()}
         del change
@@ -207,6 +209,7 @@ def job(ctx: Rank, seed: int, kind: str, timed: bool, cell=None) -> dict:
             pool = own if index == ctx.rank else batches(ctx, seed, index)
             ts, step, feed = program(ctx.cfg, state, ctx.device, ctx.mesh)
             del state
+            seed_ema(ts, init, seed, ctx.device)
             losses = []
             for i in range(followed):
                 _, metrics = step(ts, feed(pool[i % len(pool)]))
@@ -215,6 +218,8 @@ def job(ctx: Rank, seed: int, kind: str, timed: bool, cell=None) -> dict:
                     grad = _host(ts.opt_state["trace"])
             if ctx.rank == 0:
                 after = _host(ts.params)
+                ema = (_host(ts.ema_params) if ts.ema_params is not None
+                       else None)
             losses = [float(v) for v in losses]
             replica = replica_mismatch(ctx, dict(
                 ts.params, **{k + ".trace": v
@@ -233,16 +238,12 @@ def job(ctx: Rank, seed: int, kind: str, timed: bool, cell=None) -> dict:
         free(ctx.device)
         precise()
     t0 = time.perf_counter()
-    ref_losses, ref_grad, ref_change = reference_steps(
-        ctx, ctx.cfg, init, own, followed, group=dist.group.WORLD)
+    ref = reference_steps(ctx, ctx.cfg, init, own, followed,
+                          group=dist.group.WORLD, seed=seed)
     out["check_s"] = time.perf_counter() - t0
     if ctx.rank:
         return {}
-    dev = ctx.device
-    change = {k: after[k].to(dev) - init[k].to(dev) for k in ref_change}
-    grad = {k: grad[k].to(dev) for k in ref_change}
-    out["gaps"] = dict(judge.train_gaps(losses, ref_losses, grad, ref_grad,
-                                        change, ref_change),
+    out["gaps"] = dict(gaps(ctx.device, init, losses, grad, after, ema, ref),
                        replica_mismatch=replica)
     return out
 

@@ -3,12 +3,14 @@ fed by ``train.DeviceFeed`` (pinned staging, asynchronous uploads).
 
 Set-up: the configuration's model with seeded weights (the RetinaNet
 init: prediction convs of std ``predict_std``, the class prior on the
-class bias), the optimizer and train state as ``train.train`` makes them,
-and ``pool_batches`` seeded COCO-like batches cycled, so that the matching
-kernel sees other boxes every step. The first ``followed`` steps run
-through the same step and feed in the set-up (they warm up every shape);
-their losses, the momentum trace after the first (the first gradient as
-the optimizer takes it) and the parameters after the last are kept.
+class bias), the optimizer and train state as ``train.train`` makes them
+(where the configuration keeps an EMA, it starts at
+``weights.ema_start``), and ``pool_batches`` seeded COCO-like batches
+cycled, so that the matching kernel sees other boxes every step. The
+first ``followed`` steps run through the same step and feed in the set-up
+(they warm up every shape); their losses, the momentum trace after the
+first (the first gradient as the optimizer takes it) and the parameters
+and the EMA (where the configuration keeps one) after the last are kept.
 
 Window: steps back to back on the following batches, the host enqueueing
 as the feed's staging allows; the window closes with the device idle
@@ -30,7 +32,7 @@ from bench_port import generator, judge, peaks
 from bench_port.harness import per_layer_metrics
 from bench_port.reference.model import precise
 from bench_port.reference.train import Trainer
-from bench_port.weights import seeded_state
+from bench_port.weights import ema_start, reference_state
 
 
 def batches(cell, cfg: dict) -> list:
@@ -48,11 +50,24 @@ def _host(tensors: dict) -> dict:
 
 def build(cell, cfg_dict: dict):
     t = cell.traffic
-    state = seeded_state(cell.reference.param_shapes(cfg_dict), cell.seed,
-                         cell.device, t["class_bias"], t.get("predict_std"))
+    state = reference_state(cell.reference, cfg_dict, cell.seed,
+                            cell.device, t["class_bias"],
+                            t.get("predict_std"))
     init = _host(state)
     ts, step, feed = program(cfg_dict, state, cell.device)
+    seed_ema(ts, init, cell.seed, cell.device)
     return ts, step, feed, init
+
+
+def seed_ema(ts, init: dict, seed: int, device) -> None:
+    """Starts the program's EMA, where it keeps one, at
+    ``weights.ema_start`` of the initial parameters ``init``."""
+    if ts.ema_params is None:
+        return
+    start = ema_start(init, seed, device)
+    with torch.no_grad():
+        for k in ts.ema_params:
+            ts.ema_params[k].copy_(start[k])
 
 
 def program(cfg_dict: dict, state: dict, device, mesh=None):
@@ -97,6 +112,7 @@ def run(cell) -> dict:
         if i == 0:
             first_grad = _host(ts.opt_state["trace"])
     after = _host(ts.params)
+    ema = _host(ts.ema_params) if ts.ema_params is not None else None
     losses = [float(v) for v in losses]
     cell.setup_done()
     n = cfg["train"]["batch_size"]
@@ -120,7 +136,8 @@ def run(cell) -> dict:
     del ts, step, feed
     free(cell.device)
     precise()
-    gaps = follow(cell, cfg, init, pool, followed, losses, first_grad, after)
+    gaps = follow(cell, cfg, init, pool, followed, losses, first_grad, after,
+                  ema)
     metrics = {}
     if cell.trace:
         metrics = per_layer_metrics(cell, {
@@ -145,14 +162,19 @@ def anchor_count(cfg: dict) -> int:
 
 
 def reference_steps(cell, cfg, init, pool, followed, quant=None,
-                    group=None):
+                    group=None, seed=None):
     """The reference's first ``followed`` steps from ``init`` on the pool's
     batches -> (losses, the first gradient as the optimizer takes it, each
-    leaf's change), on the cell's device; with ``group``, data-parallel
+    leaf's change, ``(the EMA's start, the EMA)`` or ``None``), on the
+    cell's device; the EMA starts at ``weights.ema_start`` of ``init``
+    and ``seed`` (the cell's by default); with ``group``, data-parallel
     over its ranks, each on its own batches (``Trainer``)."""
     dev = cell.device
+    start = None
+    if cfg["train"].get("ema_decay", 0.0) > 0:
+        start = ema_start(init, cell.seed if seed is None else seed, dev)
     ref = Trainer(cfg, {k: v.to(dev) for k, v in init.items()}, quant,
-                  cell.reference, group=group)
+                  cell.reference, group=group, ema=start)
     losses = []
     for i in range(followed):
         b = {k: torch.from_numpy(v).to(dev)
@@ -162,16 +184,31 @@ def reference_steps(cell, cfg, init, pool, followed, quant=None,
             first = {k: v.detach().clone() for k, v in ref.trace.items()}
     change = {k: ref.params[k].detach() - init[k].to(dev)
               for k in ref.params}
-    return losses, first, change
+    return losses, first, change, (None if ref.ema is None
+                                   else (start, ref.ema))
 
 
-def follow(cell, cfg, init, pool, followed, losses, first_grad,
-           after) -> dict:
+def follow(cell, cfg, init, pool, followed, losses, first_grad, after,
+           ema=None) -> dict:
     """The program's readings against the reference's."""
-    dev = cell.device
-    ref_losses, ref_grad, ref_change = reference_steps(cell, cfg, init, pool,
-                                                       followed)
-    change = {k: after[k].to(dev) - init[k].to(dev) for k in ref_change}
+    return gaps(cell.device, init, losses, first_grad, after, ema,
+                reference_steps(cell, cfg, init, pool, followed))
+
+
+def gaps(dev, init, losses, first_grad, after, ema, ref) -> dict:
+    """The program's losses, first gradient, parameters and EMA after the
+    steps (``None`` where it keeps none) against ``ref``, the tuple of
+    ``reference_steps`` (``judge.train_gaps``); each EMA is read as its
+    change from the start they share."""
+    ref_losses, ref_grad, ref_change, ref_ema = ref
+    init = {k: init[k].to(dev) for k in ref_change}
+    change = {k: after[k].to(dev) - init[k] for k in ref_change}
     grad = {k: first_grad[k].to(dev) for k in ref_change}
+    emas = (None, None)
+    if ref_ema is not None:  # a program with no EMA reads as one unmoved
+        start, ref_ema = ref_ema
+        ema = ema or start
+        emas = ({k: ema[k].to(dev) - start[k] for k in ref_ema},
+                {k: v - start[k] for k, v in ref_ema.items()})
     return judge.train_gaps(losses, ref_losses, grad, ref_grad, change,
-                            ref_change)
+                            ref_change, *emas)

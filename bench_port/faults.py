@@ -26,6 +26,17 @@ Training (``TRAINING``; a data-parallel cell plants them in every rank):
   gradients (the metrics are still summed): each rank updates on its own
   rows' share;
 * ``same_rows``: every rank takes the rows of data index 0.
+
+A step that keeps an EMA (``EMA``):
+
+* ``ema_unchanged``: the EMA's update writes to copies of its tensors,
+  so the EMA stays where it started.
+
+Sound variants, which must come out correct (``SOUND``):
+
+* ``ema_lerp``: the step's EMA as one ``torch._foreach_lerp_`` toward the
+  updated parameters, ``e + (1 - d) (p - e)``: another formula than the
+  port's ``e d + p (1 - d)``, and a more exact one.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import torch
 SERVING = ("half_rows", "answers", "no_nms", "nms_at_0.3", "weaker_kept",
            "merge_skips_top", "selection_drops_best")
 TRAINING = ("unchanged_state", "half_batch", "unreduced_grads", "same_rows")
+EMA = ("ema_unchanged",)
+SOUND = ("ema_lerp",)
 
 
 def _collect_altered(real, alter):
@@ -124,6 +137,44 @@ def _feed_half(real):
     return feed
 
 
+class _Copies(dict):
+    """Tensors by name whose ``items()`` hands out copies: what is written
+    to them is lost."""
+
+    def items(self):
+        return ((k, v.clone()) for k, v in super().items())
+
+
+def _ema_left_unchanged(real):
+    def create(*args, **kwargs):
+        ts = real(*args, **kwargs)
+        if ts.ema_params is not None:
+            ts.ema_params = _Copies(ts.ema_params)
+        return ts
+    return create
+
+
+def _ema_by_lerp(real):
+    def make(*args, ema_decay: float = 0.0, **kwargs):
+        step = real(*args, ema_decay=ema_decay, **kwargs)
+
+        def lerped(state, batch):
+            ema, state.ema_params = state.ema_params, None
+            try:
+                out = step(state, batch)
+            finally:
+                state.ema_params = ema
+            if ema is not None:
+                with torch.no_grad():
+                    torch._foreach_lerp_(
+                        list(ema.values()),
+                        [state.params[k].detach() for k in ema],
+                        1.0 - ema_decay)
+            return out
+        return lerped
+    return make
+
+
 def _reduce_metrics_only(real):
     def reduce(grads, metrics, group):
         real({}, metrics, group)
@@ -147,6 +198,9 @@ def _site(name: str):
         "unchanged_state": (train_step.Optimizer, "update",
                             _update_unchanged),
         "half_batch": (train.DeviceFeed, "__call__", _feed_half),
+        "ema_unchanged": (train_step, "create_train_state",
+                          _ema_left_unchanged),
+        "ema_lerp": (train_step, "make_train_step", _ema_by_lerp),
         "unreduced_grads": (train_step, "_reduce", _reduce_metrics_only),
         "same_rows": (mesh, "data_index_and_size", _first_rows),
         "half_rows": (Predictor, "predict_collect",

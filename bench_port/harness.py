@@ -7,7 +7,10 @@ configuration, ``bench_port/configs/<config>.json``, to a traffic mix,
 reference, ``bench_port/reference/<reference>.py`` (``model`` where it
 names none: ``reference.for_config``); the mix names its driver,
 ``bench_port/drivers/<driver>.py``; the limits of the comparison that
-decides ``correct`` are ``bench_port/limits/<workload>.json``; each
+decides ``correct`` are ``bench_port/limits/<workload>.json`` (which
+names under ``control`` the control kind of ``controls.py`` they were
+set against, ``control`` where it names none, and may keep notes as
+strings); each
 per-layer metric is read by ``bench_port/metrics/<metric>.py``. Adding a
 cell, a configuration, a mix or a metric adds files and entries.
 
@@ -80,6 +83,11 @@ class Cell:
                                  self.entry["traffic"] + ".json")
         limits = os.path.join(HERE, "limits", workload + ".json")
         self.limits = load_json(limits) if os.path.exists(limits) else {}
+        # what is not a limit: the control the limits were set against,
+        # and notes on what they cannot see
+        self.control = self.limits.pop("control", "control")
+        self.notes = {k: self.limits.pop(k) for k in list(self.limits)
+                      if isinstance(self.limits[k], str)}
         for key, value in (overrides or {}).items():  # tests shrink cells
             _merge({"config": self.config["config"], "traffic": self.traffic,
                     "limits": self.limits}[key], value)

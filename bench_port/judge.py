@@ -40,7 +40,13 @@ parameters on the same batches:
   leaf's swings: see PERF.md);
 * ``update_gap``: the same of each leaf's change after the steps, over
   the leaves whose reference gradient is not nought to rounding (under a
-  thousandth of the median leaf's), which move by round-off alone.
+  thousandth of the median leaf's), which move by round-off alone;
+* ``ema_gap``, where the configuration keeps an EMA: the same of each
+  leaf's EMA change after the steps (the EMA less its start) against
+  the EMA of the reference's own parameters from the same start, over
+  every leaf: the start lies apart from the parameters
+  (``weights.ema_start``), so that every leaf's EMA moves by the
+  formula's work, far above its rounding.
 """
 
 from __future__ import annotations
@@ -201,10 +207,12 @@ def _leaf_gaps(norms: dict, ref: dict, keys: list) -> list:
 
 
 def train_gaps(losses: list, ref_losses: list, grad: dict, ref_grad: dict,
-               change: dict, ref_change: dict) -> dict:
-    """Each dict maps a parameter's name to a tensor (any device). The
-    leaf gaps are given as the median leaf's (``grad_gap``,
-    ``update_gap``) and the worst leaf's (``*_worst``)."""
+               change: dict, ref_change: dict, ema: dict | None = None,
+               ref_ema: dict | None = None) -> dict:
+    """Each dict maps a parameter's name to a tensor (any device);
+    ``ema``, ``ref_ema``: the EMA's changes, or ``None`` where there is no
+    EMA. The leaf gaps are given as the median leaf's (``grad_gap``,
+    ``update_gap``, ``ema_gap``) and the worst leaf's (``*_worst``)."""
     loss = max(abs(a - b) / max(abs(b), 1e-12)
                for a, b in zip(losses, ref_losses))
     g, rg = _leaf_norms(grad), _leaf_norms(ref_grad)
@@ -212,8 +220,12 @@ def train_gaps(losses: list, ref_losses: list, grad: dict, ref_grad: dict,
     moved = [k for k in rg if rg[k] >= 1e-3 * med_g]
     grads = _leaf_gaps(g, rg, list(rg))
     updates = _leaf_gaps(_leaf_norms(change), _leaf_norms(ref_change), moved)
-    return {"loss_gap": loss,
-            "grad_gap": float(np.median(grads)), "grad_gap_worst": max(grads),
-            "update_gap": float(np.median(updates)),
-            "update_gap_worst": max(updates),
-            "leaves_left_out": len(rg) - len(moved)}
+    out = {"loss_gap": loss,
+           "grad_gap": float(np.median(grads)), "grad_gap_worst": max(grads),
+           "update_gap": float(np.median(updates)),
+           "update_gap_worst": max(updates),
+           "leaves_left_out": len(rg) - len(moved)}
+    if ref_ema is not None:
+        emas = _leaf_gaps(_leaf_norms(ema), _leaf_norms(ref_ema), list(rg))
+        out.update(ema_gap=float(np.median(emas)), ema_gap_worst=max(emas))
+    return out

@@ -13,7 +13,12 @@ by default ``model``. That module exports
   ``__call__`` (images -> per-level raw maps);
 * ``param_shapes(cfg)``: state-dict name -> shape;
 * optionally ``wgrad_excess(params, cfg, batch)``: the FLOPs that
-  ``FlopCounterMode`` over-counts in its grouped convs' weight gradients.
+  ``FlopCounterMode`` over-counts in its grouped convs' weight gradients;
+* optionally ``seed_means(cfg)``: state-dict name -> the value that a
+  parameter which is neither a 4-d kernel nor a ``.bn.`` norm vector
+  starts from in its source (a fusion weight's 1, say), which
+  ``weights.seeded_state`` draws it around; every other such parameter is
+  seeded as a zero bias (the class head's as the mix's class bias).
 
 A new architecture joins with a module of its own and a configuration
 that names it; no file here needs an edit.

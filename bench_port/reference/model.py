@@ -64,15 +64,24 @@ class Quant:
     conv's input, keyed by conv and input size (the shared head convs hold
     one a pyramid level); ``dynamic`` takes each call's own ``max|x|``
     instead (training's control). ``ste``: the rounding passes gradients
-    straight through."""
+    straight through. ``whole_step`` (with ``ste``): the grouped
+    (depthwise) convs too, and the backward's incoming gradient, per tensor
+    on its own range, so that the step's every conv takes 8-bit operands
+    both ways."""
 
     def __init__(self, bits: int = 8, dynamic: bool = False,
-                 ste: bool = False):
+                 ste: bool = False, whole_step: bool = False):
         self.qmax = float(2 ** (bits - 1) - 1)
         self.dynamic = dynamic
         self.ste = ste
+        self.whole_step = whole_step
         self.absmax: dict = {}
         self.recording = False
+
+    def rounded(self, g: torch.Tensor) -> torch.Tensor:
+        """``g`` on its own per-tensor range, dequantized."""
+        s = torch.clamp_min(g.abs().amax().float() / self.qmax, 1e-30)
+        return torch.clamp(torch.round(g / s), -self.qmax, self.qmax) * s
 
     def _round(self, x: torch.Tensor) -> torch.Tensor:
         q = torch.clamp(torch.round(x), -self.qmax, self.qmax)
@@ -85,7 +94,7 @@ class Quant:
         return self._round(w / scale.view(-1, 1, 1, 1)), scale
 
     def conv(self, key: str, x: torch.Tensor, w: torch.Tensor,
-             stride: int, padding) -> torch.Tensor | None:
+             stride: int, padding, groups: int = 1) -> torch.Tensor | None:
         """The quantized conv without bias, or ``None`` while recording
         (the caller then runs the float conv)."""
         k = (key, x.shape[-2], x.shape[-1])
@@ -99,21 +108,46 @@ class Quant:
         a_scale = torch.clamp_min(m / self.qmax, 1e-8)
         x_q = self._round(x / a_scale)
         w_q, w_scale = self.weight(w)
-        if self.ste:  # float arithmetic, differentiable
-            y = F.conv2d(x_q, w_q, None, stride, padding)
+        if self.ste and self.whole_step:
+            y = _RoundedBackward.apply(x_q, w_q, stride, padding, groups,
+                                       self)
+        elif self.ste:  # float arithmetic, differentiable
+            y = F.conv2d(x_q, w_q, None, stride, padding, 1, groups)
         else:
             y = F.conv2d(x_q.double(), w_q.double(), None, stride,
-                         padding).float()
+                         padding, 1, groups).float()
         return y * (a_scale * w_scale).view(1, -1, 1, 1)
+
+
+class _RoundedBackward(torch.autograd.Function):
+    """A conv of 8-bit operands whose backward takes the incoming
+    gradient on its own 8-bit range too."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups, quant):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups, quant)
+        return F.conv2d(x, w, None, stride, padding, 1, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups, quant = ctx.conf
+        g = quant.rounded(gy)
+        gx = torch.nn.grad.conv2d_input(x.shape, w, g, stride, padding, 1,
+                                        groups)
+        gw = torch.nn.grad.conv2d_weight(x, w.shape, g, stride, padding, 1,
+                                         groups)
+        return gx, gw, None, None, None, None
 
 
 class Model:
     """The reference network over a params dict. ``cfg``: the repo
-    config as a dict. ``quant``: a ``Quant`` for the dense convs, or
-    ``None`` for float32. ``group``: in training, the process group over
-    whose ranks (each its own rows, as many each) batch norm takes its
-    two means, so that they are the global batch's; ``None``: this
-    process's rows alone."""
+    config as a dict. ``quant``: a ``Quant`` for the dense convs (and the
+    grouped ones for its ``whole_step``), or ``None`` for float32. ``group``:
+    in training, the process group over whose ranks (each its own rows,
+    as many each) batch norm takes its two means, so that they are the
+    global batch's; ``None``: this process's rows alone."""
 
     def __init__(self, cfg: dict, params: dict, quant: Quant | None = None):
         self.cfg = cfg
@@ -145,8 +179,9 @@ class Model:
         else:
             padding = (ph[0], pw[0])
         y = None
-        if self.quant is not None and quant and groups == 1:
-            y = self.quant.conv(name, x, w, stride, padding)
+        if self.quant is not None and quant and (groups == 1
+                                                 or self.quant.whole_step):
+            y = self.quant.conv(name, x, w, stride, padding, groups)
         if y is None:
             y = F.conv2d(x, w, None, stride, padding, 1, groups)
         return y if b is None else y + b.view(1, -1, 1, 1)

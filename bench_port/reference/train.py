@@ -8,7 +8,11 @@ loss and the smooth-L1 (or GIoU) box loss summed over the levels and
 divided by the positives, the L2 term ``0.5 wd sum w^2`` over kernels,
 clipping by the global norm, and momentum SGD in optax's Nesterov form
 (``t = g + mu t``, step ``g + mu t``) under the linear warm-up and cosine
-schedule, whose first update has learning rate 0.
+schedule, whose first update has learning rate 0, and where the
+configuration's ``train.ema_decay`` is above 0 the EMA of the parameters
+after each update, by the port's formula in float32 (``e = e d + p (1 -
+d)``, ``d`` and ``1 - d`` rounded to float32), from the start it is
+given.
 
 The backbone's blocks and each pyramid level's subnets and loss run under
 activation checkpoints, which recompute the same float32 arithmetic: at
@@ -136,13 +140,16 @@ class Trainer:
     """Follows the port's step from the same parameters on the same
     batches. ``params``: float32 tensors by state-dict name (BN running
     statistics are not needed: train mode normalizes by the batch's).
+    ``ema``: where the configuration keeps an EMA, the EMA's start by
+    name (by default the parameters); ``self.ema`` is ``None`` where it
+    keeps none.
     ``reference``: the configuration's reference module
     (``reference.for_config``), by default ``model``. ``group``: the
     process group of a data-parallel step, each rank its own rows, or
     ``None``."""
 
     def __init__(self, cfg: dict, params: dict, quant=None, reference=None,
-                 group=None):
+                 group=None, ema: dict | None = None):
         if cfg["train"]["optimizer"] != "momentum":
             raise ValueError("the reference follows momentum SGD")
         self.cfg = cfg
@@ -155,6 +162,12 @@ class Trainer:
         self.model.training = True
         self.model.group = group
         self.trace = {k: torch.zeros_like(v) for k, v in self.params.items()}
+        decay = np.float32(cfg["train"].get("ema_decay", 0.0))
+        self.ema_decay = float(decay)
+        self.ema_keep = float(np.float32(1) - decay)
+        start = self.params if ema is None else ema
+        self.ema = ({k: start[k].detach().clone() for k in self.params}
+                    if decay > 0 else None)
         self.count = 0
         self.anchors = None
 
@@ -239,5 +252,9 @@ class Trainer:
                 tr = self.trace[k]
                 tr.copy_(g + tr * mu)
                 self.params[k].add_((g + tr * mu) * -lr)
+            if self.ema is not None:
+                for k, e in self.ema.items():
+                    e.copy_(e * self.ema_decay
+                            + self.params[k] * self.ema_keep)
             self.count += 1
         return {"loss": float(loss + l2), "grad": grads}

@@ -12,17 +12,19 @@ import json
 import os
 
 import pytest
+import torch
 
-from conftest import ROOT, manifest, run_tiny
+from conftest import ROOT, SEED, manifest, run_tiny, tiny
 
-from bench_port import faults
+from bench_port import controls, faults, harness
 
 SERVE = ["ssd_mnv1_fpn_640.serve_int8_b32", "ssd_mnv1_fpn_640.serve_bf16_b32"]
 TRAIN = "retinanet_r50_fpn_640.train_b64"
 DP = "retinanet_r50_fpn_640.train_dp4_b256"
+EMA = "ssd_mnv1_fpn_640.train_b64"  # MobileNet-v1, GIoU, the shipped EMA
 
 
-@pytest.mark.parametrize("workload", SERVE + [TRAIN, DP])
+@pytest.mark.parametrize("workload", SERVE + [TRAIN, DP, EMA])
 def test_sound_runs_are_correct(workload):
     for trace in (0, 1):
         line = run_tiny(workload, trace=trace)
@@ -49,6 +51,36 @@ def test_a_step_that_leaves_the_state_unchanged_is_not_correct():
 def test_half_the_batch_left_out_is_not_correct():
     with faults.planted("half_batch"):
         assert not run_tiny(TRAIN)["correct"]
+
+
+@pytest.mark.parametrize("fault", ("unchanged_state", "half_batch")
+                         + faults.EMA)
+def test_the_ema_cells_faults_come_out_not_correct(fault):
+    with faults.planted(fault):
+        line = run_tiny(EMA)
+    assert not line["correct"], line["checks"]
+
+
+@pytest.mark.parametrize("variant", faults.SOUND)
+def test_the_ema_cells_sound_variants_come_out_correct(variant):
+    """At the cell's own learning rate and warm-up, which the tiny cell
+    keeps: the EMA as a lerp, more exact than the port's formula."""
+    with faults.planted(variant):
+        line = run_tiny(EMA)
+    assert line["correct"], line["checks"]
+    assert line["checks"]["ema_gap"]["value"] < 1e-3, line["checks"]
+
+
+def test_the_ema_is_compared_only_where_the_configuration_keeps_one():
+    """``ema_gap`` is read and held to its limit in the cell whose
+    configuration keeps an EMA; the ResNet-50 cells (``ema_decay`` 0)
+    read none, so their checks are what they were."""
+    for workload, kept in ((EMA, True), (TRAIN, False)):
+        cell = harness.Cell(manifest(), workload, SEED, 1.0, False,
+                            torch.device("cpu"), 0.0, tiny(workload))
+        readings = controls.train_readings(cell, "program")
+        assert ("ema_gap" in readings) == kept, (workload, readings)
+        assert ("ema_gap" in cell.checks(readings)) == kept
 
 
 @pytest.mark.parametrize("fault", faults.TRAINING)

@@ -19,7 +19,7 @@ from conftest import ROOT
 from bench_port.reference import detect
 from bench_port.reference.model import Model, param_shapes
 from bench_port.reference.train import Trainer
-from bench_port.weights import seeded_state
+from bench_port.weights import ema_start, seeded_state
 
 MOBILENET = "bench_port/configs/ssd_mnv1_fpn_640.json"
 RESNET = "bench_port/configs/retinanet_r50_fpn_640.json"
@@ -166,6 +166,86 @@ def test_training_steps_match_the_ports():
     assert gaps["update_gap"] < 1e-3, gaps
 
 
+def test_the_ema_follows_the_ports():
+    """MobileNet-v1 with the GIoU box loss and the shipped EMA (0.9998), at
+    the cell's own learning rate and warm-up (a first step at rate 0,
+    then 1.6e-4 and 3.2e-4): three steps' EMA from a start apart from
+    the parameters (``weights.ema_start``) against the port's, besides
+    the losses, the first gradient and the change. The EMA as a lerp, a
+    formula more exact than the port's, reads as close; one left where
+    it started, or at the wrong decay, far off."""
+    from ssd_tpu_torch.config import Config
+    from ssd_tpu_torch.models.detector import Detector
+    from ssd_tpu_torch.train_step import (Optimizer, create_train_state,
+                                          make_train_step)
+
+    from bench_port import faults, generator, judge
+    from bench_port.drivers.train_step import seed_ema
+    size = 128
+    d = config(MOBILENET, size)
+    assert d["train"]["ema_decay"] == 0.9998
+    assert d["losses"]["box_loss"] == "giou"
+    assert d["train"]["warmup_steps"] == 500
+    assert d["train"]["learning_rate"] == 0.08
+    state = seeded_state(param_shapes(d), 5, torch.device("cpu"), -4.59512,
+                         0.01)
+    init = {k: v.clone() for k, v in state.items()}
+    decay = d["train"]["ema_decay"]
+    scenes = {"sides": [8, 64]}
+    batches = [{k: torch.from_numpy(v) for k, v in generator.scene_batch(
+        9, i, 4, (size, size), 80, scenes, torch.device("cpu")).items()}
+        for i in range(3)]
+
+    def program():
+        det = Detector(Config.from_dict(d), {k: v.clone()
+                                             for k, v in init.items()},
+                       device="cpu")
+        opt = Optimizer(Config.from_dict(d))
+        ts = create_train_state(det, opt, ema_decay=decay)
+        seed_ema(ts, init, 5, torch.device("cpu"))
+        step = make_train_step(det, opt, ema_decay=decay)
+        losses = []
+        for i, b in enumerate(batches):
+            _, m = step(ts, b)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                grad = {k: v.clone()
+                        for k, v in ts.opt_state["trace"].items()}
+        return ts, losses, grad
+
+    ts, losses, grad = program()
+    with faults.planted("ema_lerp"):
+        lerp, _, _ = program()
+    start = ema_start(init, 5, torch.device("cpu"))
+    ref = Trainer(d, init, ema=start)
+    ref.model = RoundedInput(d, ref.params)
+    ref.model.training = True
+    ref_losses = []
+    for i, b in enumerate(batches):
+        ref_losses.append(ref.step(b)["loss"])
+        if i == 0:
+            ref_grad = {k: v.clone() for k, v in ref.trace.items()}
+
+    def moved(tensors, since=init):
+        return {k: tensors[k].detach() - since[k] for k in ref.params}
+
+    def gaps(ema):
+        return judge.train_gaps(losses, ref_losses, grad, ref_grad,
+                                moved(ts.params), moved(ref.params),
+                                moved(ema, start), moved(ref.ema, start))
+    sound = gaps(ts.ema_params)
+    assert sound["loss_gap"] < 1e-5, sound
+    assert sound["grad_gap"] < 1e-5, sound
+    assert sound["update_gap"] < 1e-3, sound
+    assert sound["ema_gap"] < 1e-4, sound
+    assert sound["ema_gap_worst"] < 1e-3, sound
+    assert gaps(lerp.ema_params)["ema_gap_worst"] < 1e-3
+    assert gaps(start)["ema_gap"] == 1.0  # an EMA left where it began
+    # an EMA at decay 0.9999, half the shipped rate
+    slow = {k: start[k] + (v - start[k]) / 2 for k, v in ts.ema_params.items()}
+    assert gaps(slow)["ema_gap"] > 0.4
+
+
 DP_RANK = r"""
 import json, sys
 import numpy as np
@@ -174,7 +254,7 @@ import torch.distributed as dist
 from bench_port import generator
 from bench_port.reference.model import param_shapes
 from bench_port.reference.train import Trainer
-from bench_port.weights import seeded_state
+from bench_port.weights import ema_start, seeded_state
 
 a = json.loads(sys.argv[1])
 torch.set_num_threads(2)
